@@ -1,4 +1,4 @@
-"""Protocol constants the block-square path uses.
+"""Protocol constants the block-square path and the square builder use.
 
 A copy of the values in celestia_app_tpu/constants (reference
 pkg/appconsts/global_consts.go); they cannot change during the lifetime of
@@ -11,6 +11,24 @@ NAMESPACE_SIZE = NAMESPACE_VERSION_SIZE + NAMESPACE_ID_SIZE  # 29
 SHARE_SIZE = 512
 SHARE_INFO_BYTES = 1
 SEQUENCE_LEN_BYTES = 4
+SHARE_VERSION_ZERO = 0
+MAX_SHARE_VERSION = 127
+COMPACT_SHARE_RESERVED_BYTES = 4
+
+FIRST_COMPACT_SHARE_CONTENT_SIZE = (
+    SHARE_SIZE - NAMESPACE_SIZE - SHARE_INFO_BYTES - SEQUENCE_LEN_BYTES
+    - COMPACT_SHARE_RESERVED_BYTES
+)  # 474
+CONTINUATION_COMPACT_SHARE_CONTENT_SIZE = (
+    SHARE_SIZE - NAMESPACE_SIZE - SHARE_INFO_BYTES - COMPACT_SHARE_RESERVED_BYTES
+)  # 478
+FIRST_SPARSE_SHARE_CONTENT_SIZE = (
+    SHARE_SIZE - NAMESPACE_SIZE - SHARE_INFO_BYTES - SEQUENCE_LEN_BYTES
+)  # 478
+CONTINUATION_SPARSE_SHARE_CONTENT_SIZE = SHARE_SIZE - NAMESPACE_SIZE - SHARE_INFO_BYTES  # 482
+
+# Blob start alignment (non-interactive default rules, v1/v2 app consts).
+SUBTREE_ROOT_THRESHOLD = 64
 
 # The parity-share namespace (29 x 0xFF): every erasure-coded leaf outside
 # Q0 carries it, and it triggers the NMT ignore-max rule.

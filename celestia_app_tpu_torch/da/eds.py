@@ -1,6 +1,6 @@
 """Extended data square: the 2k x 2k erasure-coded share matrix and its
 NMT roots (reference pkg/da/data_availability_header.go:65-75), computed on
-the card by kernels/fused.extend_and_dah_fn.
+the card by the lowering that kernels/fused.pipeline_mode selects.
 
 Accessors mirror the rsmt2d surface of celestia_app_tpu/da/eds.py; they
 return host copies.
@@ -17,7 +17,9 @@ from celestia_app_tpu_torch.constants import MAX_CODEC_SQUARE_SIZE, SHARE_SIZE
 from celestia_app_tpu_torch.device import resolve_device
 from celestia_app_tpu_torch.gf.rs import active_construction
 from celestia_app_tpu_torch.kernels import fused
-from celestia_app_tpu_torch.kernels.rs import use_xor
+from celestia_app_tpu_torch.kernels.rs import extend_square_fn, use_xor
+
+MODES = ("fused", "fused_epi", "staged", "host")
 
 
 def leaf_namespaces(eds: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -37,10 +39,37 @@ def roots_fn(k: int):
     return roots
 
 
+def _pipeline(k: int, construction: str | None, device):
+    """The staged lowering: ods (k, k, 512) -> (eds, row_roots, col_roots,
+    droot) as extend, then hash (celestia_app_tpu/da/eds.py::_pipeline)."""
+    extend = extend_square_fn(k, construction, device)
+    roots = roots_fn(k)
+
+    def run(ods: torch.Tensor):
+        eds = extend(ods)
+        return (eds, *roots(eds))
+
+    return run
+
+
+def pipeline_for_mode(mode: str, k: int, construction: str | None = None, device=None):
+    """The pipeline of one lowering: "fused", "fused_epi" (the epilogue
+    kernel), or "staged".  The port compiles nothing ahead, so "host", the
+    JAX package's eager staged floor, is the staged pipeline here."""
+    if mode not in MODES:
+        raise ValueError(f"unknown pipeline mode {mode!r}; expected one of {MODES}")
+    dev = resolve_device(device)
+    if mode in ("staged", "host"):
+        return _pipeline(k, construction, dev)
+    return fused.extend_and_dah_fn(k, construction, epilogue=(mode == "fused_epi"),
+                                   device=dev)
+
+
 @lru_cache(maxsize=None)
-def _pipeline(k: int, construction: str, xor: bool, device: torch.device):
+def _cached_pipeline(k: int, construction: str, xor: bool, mode: str,
+                     device: torch.device):
     # `xor` is part of the key: the RS core is fixed when the pipeline is built.
-    return fused.extend_and_dah_fn(k, construction, device=device)
+    return pipeline_for_mode(mode, k, construction, device)
 
 
 def _check_square(k: int) -> None:
@@ -68,7 +97,8 @@ class ExtendedDataSquare:
     def compute(cls, ods, construction: str | None = None,
                 device=None) -> "ExtendedDataSquare":
         """Extend a (k, k, 512) uint8 ODS (numpy or tensor) on `device`
-        (default CUDA; a CUDA request without a card raises)."""
+        (default CUDA; a CUDA request without a card raises) through the
+        lowering $CELESTIA_PIPE_FUSED selects at this call."""
         dev = resolve_device(device)
         k = ods.shape[0]
         _check_square(k)
@@ -78,7 +108,8 @@ class ExtendedDataSquare:
             np.array(ods, dtype=np.uint8))
         if x.dtype != torch.uint8:
             raise ValueError(f"ODS must be uint8, got {x.dtype}")
-        run = _pipeline(k, construction or active_construction(), use_xor(), dev)
+        run = _cached_pipeline(k, construction or active_construction(), use_xor(),
+                               fused.pipeline_mode(), dev)
         eds, rr, cr, droot = run(x.to(dev))
         return cls(eds, rr, cr, droot, k)
 

@@ -27,6 +27,12 @@ from celestia_app_tpu_torch.kernels.sha256 import sha256, sha256_leaves
 _MAX_NS_BYTE = PARITY_NAMESPACE_BYTES[0]  # every byte of the parity namespace is 0xFF
 
 
+def parity_namespaces(shape: tuple[int, ...], device) -> torch.Tensor:
+    """(*shape, 29) copies of the parity namespace 0xFF^29 (a broadcast view)."""
+    parity = torch.tensor(list(PARITY_NAMESPACE_BYTES), dtype=torch.uint8, device=device)
+    return parity.expand(*shape, NAMESPACE_SIZE)
+
+
 def leaf_digests(ns: torch.Tensor, data: torch.Tensor):
     """Hash T x L leaves: ns (T, L, 29), data (T, L, D) uint8 ->
     (mins, maxs, hashes) of shapes (T, L, 29), (T, L, 29), (T, L, 32)."""

@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the block-square path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port of the block path on one NVIDIA card.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. build   every CUDA kernel from celestia_app_tpu_torch/csrc (one nvcc per
-             source, started together), print the build seconds and the card;
+             source, started together), print the build seconds, the ptxas
+             register and spill lines, and the card;
   2. kernels each kernel against its plain PyTorch version on the card at the
              shapes the main path gives it; every byte must agree;
   3. goldens extend_shares on the card reproduces the reference DAH hashes
-             (MinDAH, k=2, k=128);
-  4. full    k=512 in GF(2^16) and k=128 leopard on random squares: data root
-             through the dense RS kernel == through the XOR RS kernel, sampled
-             parity shares == the host RSCodec, sampled leaf digests ==
-             hashlib, end-to-end time; the launch counters show that each
-             path ran through its kernels.
+             (MinDAH, k=2, k=128), under the fused and the fused_epi
+             ($CELESTIA_PIPE_FUSED=epi) lowerings;
+  4. full    k=512 in GF(2^16) and k=128 leopard on random squares: one data
+             root and one EDS through the dense RS kernel, the XOR RS kernel
+             and the epilogue kernel (fused_epi on either row-phase seat),
+             sampled parity shares == the host RSCodec, sampled leaf digests
+             == hashlib, end-to-end times; the launch counters show that each
+             path ran through its kernels;
+  5. block   extend_block on a k=128 block of txs and BlobTxs: one data root
+             under the fused, staged and fused_epi lowerings, equal to
+             extend_shares of the constructed square; an empty block is None.
 Then one JSON line per kernel table, the card's name and power limit, and
 last the result line {"ok": true, "device": {...}}.  Needs no network and no
 argument; exits non-zero without a CUDA device.
@@ -22,6 +28,7 @@ argument; exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -64,11 +71,38 @@ KERNELS = {
         "route": "cuda", "source": "celestia_app_tpu_torch/csrc/rs_xor.cu",
         "replaces": "celestia_app_tpu/kernels/rs_xor.py:159",
     },
+    "rs_xor_leaf": {
+        "route": "cuda", "source": "celestia_app_tpu_torch/csrc/rs_xor_leaf.cu",
+        "replaces": "celestia_app_tpu/kernels/rs_xor.py:272",
+    },
+}
+
+# Per pipeline: (environment, the kernel of the column phase).
+PATHS = {
+    "dense": ({"CELESTIA_RS_XOR": "off", "CELESTIA_PIPE_FUSED": "on"}, "rs_dense"),
+    "xor": ({"CELESTIA_RS_XOR": "on", "CELESTIA_PIPE_FUSED": "on"}, "rs_xor"),
+    "epi": ({"CELESTIA_RS_XOR": "off", "CELESTIA_PIPE_FUSED": "epi"}, "rs_xor_leaf"),
+    "epi_xor": ({"CELESTIA_RS_XOR": "on", "CELESTIA_PIPE_FUSED": "epi"}, "rs_xor_leaf"),
 }
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def environment(values: dict):
+    """Set environment variables for the block, then restore them."""
+    old = {key: os.environ.get(key) for key in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for key, val in old.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
 
 
 def card_line() -> str:
@@ -249,6 +283,43 @@ def phase_kernels(torch, table: Table, card: str) -> None:
         del G_bits, G_words, t
         torch.cuda.empty_cache()
 
+    # The fused extend + leaf-hash epilogue on the fused_epi column phase's
+    # input, the top half (k, 2k, 512): GF(2^8) at k = 1, 2, 128 and
+    # GF(2^16) at k = 256, 512.
+    for k in (1, 2, 128, 256, 512):
+        codec = codec_for_width(k, "vandermonde")
+        m = codec.field.m
+        G_words = codec_tensors(codec.generator_bits(), m, dev)["G_words"]
+        nw, Pm = G_words.shape
+        top = rand_bytes(k, 2 * k, 512)
+        bottom, hashes = rs_xor.extend_leaf_digests(top, G_words, m)
+        want_bottom, want_hashes = rs_xor.extend_leaf_digests_plain(top, G_words, m)
+        e = max(max_abs_err(bottom, want_bottom), max_abs_err(hashes, want_hashes))
+        table.err("rs_xor_leaf", e)
+        if e:
+            raise AssertionError(f"rs_xor_leaf != plain at k={k} m={m}")
+        n_leaves = k * 2 * k
+        for idx in rng.choice(n_leaves, min(64, n_leaves), replace=False):
+            i, j = divmod(int(idx), 2 * k)
+            msg = b"\x00" + b"\xff" * 29 + bottom[i, j].cpu().numpy().tobytes()
+            if hashes[i, j].cpu().numpy().tobytes() != hashlib.sha256(msg).digest():
+                raise AssertionError(f"rs_xor_leaf digest ({i}, {j}) != hashlib at k={k}")
+        del want_bottom, want_hashes
+        ms = cuda_ms(torch, lambda: rs_xor.extend_leaf_digests(top, G_words, m), reps=3)
+        plain_ms = cuda_ms(torch, lambda: rs_xor.extend_leaf_digests_plain(top, G_words, m),
+                           reps=1, warm=False)
+        cols = 2 * k * (512 * 8 // m)
+        b_ms, b_by = bound(top.numel() + 4 * nw * Pm + bottom.numel() + hashes.numel(),
+                           float(Pm) * nw * cols + n_leaves * 9 * SHA_OPS_PER_COMPRESSION,
+                           INT32_OPS_PER_S)
+        log(f"[{card}] rs_xor_leaf k={k} m={m} NW={nw} cols={cols}: kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), equal; "
+            f"{min(64, n_leaves)} digests == hashlib")
+        if k == 512:
+            table.add("rs_xor_leaf", ms, plain_ms, b_ms, b_by)
+        del top, bottom, hashes, G_words
+        torch.cuda.empty_cache()
+
 
 def golden_share() -> bytes:
     ns = bytes([0x00]) + bytes(18) + bytes([0x01]) * 10
@@ -260,17 +331,21 @@ def phase_goldens(card: str) -> None:
         DataAvailabilityHeader, extend_shares, min_data_availability_header,
     )
 
-    got = min_data_availability_header().hash().hex()
-    if got != MIN_DAH_HASH:
-        raise AssertionError(f"MinDAH {got} != {MIN_DAH_HASH}")
-    for k, want in ((2, K2_HASH), (128, K128_HASH)):
-        t0 = time.perf_counter()
-        eds = extend_shares([golden_share()] * (k * k))
-        got = DataAvailabilityHeader.from_eds(eds).hash().hex()
-        if got != want or eds.data_root().hex() != want:
-            raise AssertionError(f"k={k} golden {got} != {want}")
-        log(f"[{card}] golden k={k}: {got} ({time.perf_counter() - t0:.3f} s, first call)")
-    log("golden MinDAH, k=2, k=128: equal")
+    for fused in ("on", "epi"):
+        with environment({"CELESTIA_PIPE_FUSED": fused}):
+            got = min_data_availability_header().hash().hex()
+            if got != MIN_DAH_HASH:
+                raise AssertionError(f"MinDAH {got} != {MIN_DAH_HASH} (CELESTIA_PIPE_FUSED={fused})")
+            for k, want in ((2, K2_HASH), (128, K128_HASH)):
+                t0 = time.perf_counter()
+                eds = extend_shares([golden_share()] * (k * k))
+                got = DataAvailabilityHeader.from_eds(eds).hash().hex()
+                if got != want or eds.data_root().hex() != want:
+                    raise AssertionError(f"k={k} golden {got} != {want} "
+                                         f"(CELESTIA_PIPE_FUSED={fused})")
+                log(f"[{card}] golden k={k} CELESTIA_PIPE_FUSED={fused}: {got} "
+                    f"({time.perf_counter() - t0:.3f} s, first call)")
+        log(f"golden MinDAH, k=2, k=128 under CELESTIA_PIPE_FUSED={fused}: equal")
 
 
 def device_breakdown(torch, fn, card: str, label: str) -> None:
@@ -319,7 +394,7 @@ def random_square(k: int, seed: int) -> np.ndarray:
 
 
 def phase_full(torch, k: int, construction: str, card: str, seed: int):
-    """Returns the launch counts of one dense and one XOR extend_shares."""
+    """Returns the launch counts of one extend_shares on each path of PATHS."""
     from celestia_app_tpu_torch.da import extend_shares
     from celestia_app_tpu_torch.da.eds import leaf_namespaces
     from celestia_app_tpu_torch.gf.rs import codec_for_width
@@ -330,45 +405,47 @@ def phase_full(torch, k: int, construction: str, card: str, seed: int):
     shares = [row.tobytes() for row in ods.reshape(k * k, 512)]
     codec_for_width(k, construction).generator_bits()  # host set-up, once
 
-    def run(xor: bool):
-        os.environ["CELESTIA_RS_XOR"] = "on" if xor else "off"
-        try:
+    def run(path: str):
+        with environment(PATHS[path][0]):
             eds = extend_shares(shares, construction)
             root = eds.data_root()  # copies to the host: the device work is done
-        finally:
-            os.environ.pop("CELESTIA_RS_XOR")
         return eds, root
 
-    run(False)  # first call: codec tensors on the card, allocator warm-up
-    run(True)
-    counts = {}
-    _build.reset_launches()
-    eds, root_dense = run(False)
-    counts["dense"] = dict(_build.LAUNCHES)
-    _build.reset_launches()
-    eds_xor, root_xor = run(True)
-    counts["xor"] = dict(_build.LAUNCHES)
-    if root_dense != root_xor:
-        raise AssertionError(f"k={k} {construction}: dense root {root_dense.hex()} != "
-                             f"XOR root {root_xor.hex()}")
-    if not torch.equal(eds._eds, eds_xor._eds):
-        raise AssertionError(f"k={k} {construction}: dense EDS != XOR EDS")
-    del eds_xor
+    for path in PATHS:  # first calls: codec tensors on the card, allocator warm-up
+        run(path)
+    counts, roots = {}, {}
+    eds = None
+    for path in PATHS:
+        _build.reset_launches()
+        other, roots[path] = run(path)
+        counts[path] = dict(_build.LAUNCHES)
+        if eds is None:
+            eds = other
+        elif not torch.equal(eds._eds, other._eds):
+            raise AssertionError(f"k={k} {construction}: {path} EDS != dense EDS")
+        del other
+    if len(set(roots.values())) != 1:
+        raise AssertionError(f"k={k} {construction}: data roots differ across paths: "
+                             f"{ {p: r.hex() for p, r in roots.items()} }")
+    for path, row_kernel in (("epi", "rs_dense"), ("epi_xor", "rs_xor")):
+        got = {n: counts[path][n] for n in ("rs_xor_leaf", "sha256_leaf", row_kernel)}
+        if set(got.values()) != {1}:
+            raise AssertionError(f"k={k} {path}: launches per extend {got}, want 1 each")
 
     e2e = {}
-    for xor in (False, True):
+    for path in PATHS:
         times = []
         for _ in range(3):
             t0 = time.perf_counter()
-            run(xor)
+            run(path)
             times.append((time.perf_counter() - t0) * 1e3)
-        e2e["xor" if xor else "dense"] = (float(np.median(times)), times)
+        e2e[path] = (float(np.median(times)), times)
         if k == 512:
-            device_breakdown(torch, lambda: run(xor), card,
-                             f"k={k} {construction} {'XOR' if xor else 'dense'} path")
+            device_breakdown(torch, lambda: run(path), card,
+                             f"k={k} {construction} {path} path")
 
-    # 64 parity shares against the host codec: 32 in Q1 from 4 rows, 32 in
-    # Q2 from 4 columns.
+    # 96 parity shares against the host codec: 32 in Q1 from 4 rows, 32 in
+    # Q2 from 4 ODS columns, 32 in Q3 from 4 Q1 columns.
     rng = np.random.default_rng(seed + 1)
     codec = codec_for_width(k, construction)
     picks = min(k, 8)
@@ -377,11 +454,12 @@ def phase_full(torch, k: int, construction: str, card: str, seed: int):
         for p in rng.choice(k, picks, replace=False):
             if eds._eds[i, k + p].cpu().numpy().tobytes() != parity[p].tobytes():
                 raise AssertionError(f"Q1 share ({i}, {k + p}) != host RSCodec")
-    for j in rng.choice(k, 4, replace=False):
-        parity = codec.encode(ods[:, j])
+    for j in rng.choice(2 * k, 8, replace=False):
+        parity = codec.encode(eds._eds[:k, j].cpu().numpy())
         for p in rng.choice(k, picks, replace=False):
             if eds._eds[k + p, j].cpu().numpy().tobytes() != parity[p].tobytes():
-                raise AssertionError(f"Q2 share ({k + p}, {j}) != host RSCodec")
+                quadrant = "Q2" if j < k else "Q3"
+                raise AssertionError(f"{quadrant} share ({k + p}, {j}) != host RSCodec")
 
     # 64 leaf digests of the whole EDS against hashlib.
     row_ns, _ = leaf_namespaces(eds._eds, k)
@@ -392,14 +470,93 @@ def phase_full(torch, k: int, construction: str, card: str, seed: int):
         if hashes[i, j].cpu().numpy().tobytes() != hashlib.sha256(msg).digest():
             raise AssertionError(f"leaf digest ({i}, {j}) != hashlib")
 
-    log(f"[{card}] full k={k} {construction}: data root {root_dense.hex()} dense == XOR; "
-        f"{8 * picks} parity shares == host RSCodec; 64 leaf digests == hashlib")
+    log(f"[{card}] full k={k} {construction}: data root {roots['dense'].hex()} and EDS equal "
+        f"on paths {list(PATHS)}; {12 * picks} Q1/Q2/Q3 parity shares == host RSCodec; "
+        f"64 leaf digests == hashlib")
     for path, (ms, times) in e2e.items():
         log(f"[{card}] extend_shares k={k} {construction} {path} path end to end: "
             f"{ms:.3f} ms (median of {times})")
-    log(f"launches k={k} {construction}: dense path {counts['dense']}, "
-        f"XOR path {counts['xor']}")
+    for path in PATHS:
+        log(f"launches k={k} {construction} {path} path: {counts[path]}")
     return counts
+
+
+def block_txs(seed: int, n_txs: int, n_blob_txs: int, max_blob_shares: int) -> list[bytes]:
+    """A block's raw txs: normal txs of 100-1000 B, then BlobTxs of one to
+    three blobs each under 32 v0 namespaces, blob sizes spread from one
+    share to `max_blob_shares` shares."""
+    from celestia_app_tpu_torch.constants import (
+        CONTINUATION_SPARSE_SHARE_CONTENT_SIZE as CONT,
+        FIRST_SPARSE_SHARE_CONTENT_SIZE as FIRST,
+    )
+    from celestia_app_tpu_torch.shares import Blob, Namespace
+    from celestia_app_tpu_torch.tx.envelopes import BlobTx
+
+    rng = np.random.default_rng(seed)
+    namespaces = [Namespace.v0(rng.bytes(10)) for _ in range(32)]
+    txs = [rng.bytes(int(rng.integers(100, 1000))) for _ in range(n_txs)]
+    for _ in range(n_blob_txs):
+        blobs = []
+        for _ in range(int(rng.integers(1, 4))):
+            n = int(rng.integers(1, max_blob_shares + 1))
+            size = (int(rng.integers(1, FIRST + 1)) if n == 1
+                    else FIRST + (n - 2) * CONT + int(rng.integers(1, CONT + 1)))
+            blobs.append(Blob(namespaces[int(rng.integers(32))], rng.bytes(size)))
+        txs.append(BlobTx(rng.bytes(int(rng.integers(150, 400))), tuple(blobs)).marshal())
+    return txs
+
+
+def phase_block(card: str) -> None:
+    """extend_block, the consensus entry point, on a k=128 block."""
+    from celestia_app_tpu_torch.app import extend_block
+    from celestia_app_tpu_torch.da import extend_shares
+    from celestia_app_tpu_torch.square import construct
+
+    txs = block_txs(128, 200, 300, 40)
+    construct_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        sq = construct(txs, 128)
+        construct_ms.append((time.perf_counter() - t0) * 1e3)
+    if sq.size != 128:
+        raise AssertionError(f"the block builds a k={sq.size} square, want 128")
+    shares = sq.share_bytes()
+    want = extend_shares(shares).data_root()
+    extend_ms, block_ms = {}, {}
+    for fused in ("on", "off", "epi"):
+        with environment({"CELESTIA_PIPE_FUSED": fused}):
+            extend_block(txs)  # first call of this lowering
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                root = extend_block(txs).data_root()
+                times.append((time.perf_counter() - t0) * 1e3)
+                if root != want:
+                    raise AssertionError(f"extend_block root {root.hex()} != extend_shares "
+                                         f"root {want.hex()} (CELESTIA_PIPE_FUSED={fused})")
+            block_ms[fused] = times
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                extend_shares(shares).data_root()
+                times.append((time.perf_counter() - t0) * 1e3)
+            extend_ms[fused] = times
+    if extend_block([]) is not None:
+        raise AssertionError("extend_block of an empty block is not None")
+    small = block_txs(4, 6, 3, 3)
+    on_card, on_cpu = extend_block(small), extend_block(small, device="cpu")
+    if on_card.data_root() != on_cpu.data_root():
+        raise AssertionError(f"k={on_card.k} block: card root != CPU root")
+    log(f"[{card}] block: {len(txs)} txs -> k={sq.size}, {sq.accounting.used_shares} shares "
+        f"used; data root {want.hex()} under CELESTIA_PIPE_FUSED=on/off/epi == "
+        f"extend_shares; empty block -> None; k={on_card.k} block card == CPU")
+    log(f"[{card}] block: host construct {float(np.median(construct_ms)):.3f} ms "
+        f"(median of {construct_ms})")
+    for fused in block_ms:
+        log(f"[{card}] block CELESTIA_PIPE_FUSED={fused}: extend_shares of the square "
+            f"{float(np.median(extend_ms[fused])):.3f} ms (median of {extend_ms[fused]}); "
+            f"extend_block {float(np.median(block_ms[fused])):.3f} ms "
+            f"(median of {block_ms[fused]})")
 
 
 def main() -> int:
@@ -426,7 +583,7 @@ def main() -> int:
         path = _build.BUILD_DIR / f"{lib}.log"
         if path.exists():
             for line in path.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if "entry function" in line or "registers" in line or "spill" in line:
                     log(f"ptxas {lib}: {line.strip()}")
 
     table = Table()
@@ -434,9 +591,12 @@ def main() -> int:
     phase_goldens(card)
     counts = phase_full(torch, 512, "vandermonde", card, seed=512)
     phase_full(torch, 128, "leopard", card, seed=128)
+    phase_block(card)
 
+    # Each kernel's launches on the k=512 path that runs it: the column
+    # phase's kernel names the path, the hashing kernels run on every path.
     for name in KERNELS:
-        path = "xor" if name == "rs_xor" else "dense"
+        path = next((p for p, (_, col) in PATHS.items() if col == name), "dense")
         table.rows[name]["launches"] = counts[path][name]
     missing = [n for n, r in table.rows.items() if r["launches"] <= 0]
     if missing:

@@ -85,3 +85,58 @@ def test_pipeline_on_card_equals_cpu(cuda, xor, monkeypatch):
     assert on_card.row_roots() == on_cpu.row_roots()
     assert on_card.col_roots() == on_cpu.col_roots()
     assert on_card.data_root() == on_cpu.data_root()
+
+
+@pytest.mark.parametrize("k,construction", [
+    (1, "vandermonde"), (2, "leopard"), (4, "vandermonde"), (16, "leopard"),
+    (128, "vandermonde"), (256, "leopard"), (256, "vandermonde"),
+])
+def test_epilogue_kernel_equals_plain(cuda, k, construction):
+    """The fused extend + leaf-hash kernel against its plain version on the
+    same card tensors; k = 256 runs GF(2^16), where a share's symbol bytes
+    come in pairs."""
+    rng = np.random.default_rng(k)
+    codec = RSCodec(k, construction)
+    m = codec.field.m
+    G_words = codec_tensors(codec.generator_bits(), m, cuda)["G_words"]
+    top = _bytes(rng, k, 2 * k, 512).to(cuda)
+    before = _build.LAUNCHES["rs_xor_leaf"]
+    bottom, hashes = rs_xor.extend_leaf_digests(top, G_words, m)
+    assert _build.LAUNCHES["rs_xor_leaf"] == before + 1
+    want_bottom, want_hashes = rs_xor.extend_leaf_digests_plain(top, G_words, m)
+    assert torch.equal(bottom, want_bottom), (k, construction)
+    assert torch.equal(hashes, want_hashes), (k, construction)
+    for i, j in ((0, 0), (k - 1, 2 * k - 1)):
+        msg = b"\x00" + b"\xff" * 29 + bottom[i, j].cpu().numpy().tobytes()
+        assert hashes[i, j].cpu().numpy().tobytes() == hashlib.sha256(msg).digest()
+
+
+@pytest.mark.parametrize("xor", [False, True])
+def test_epi_pipeline_on_card_equals_cpu(cuda, xor, monkeypatch):
+    """CELESTIA_PIPE_FUSED=epi on the card: one epilogue launch per extend,
+    the same roots and EDS as the CPU's fused pipeline."""
+    from celestia_app_tpu_torch.da import extend_shares
+
+    monkeypatch.setenv("CELESTIA_RS_XOR", "on" if xor else "off")
+    rng = np.random.default_rng(8)
+    shares = [rng.integers(0, 256, 512, dtype=np.uint8).tobytes() for _ in range(256)]
+    on_cpu = extend_shares(shares, "vandermonde", device="cpu")
+    monkeypatch.setenv("CELESTIA_PIPE_FUSED", "epi")
+    _build.reset_launches()
+    on_card = extend_shares(shares, "vandermonde")
+    assert _build.LAUNCHES["rs_xor_leaf"] == 1
+    assert _build.LAUNCHES["sha256_leaf"] == 1
+    assert _build.LAUNCHES["rs_xor" if xor else "rs_dense"] == 1
+    assert on_card.data_root() == on_cpu.data_root()
+    assert np.array_equal(on_card.squared(), on_cpu.squared())
+
+
+def test_extend_block_on_card_equals_cpu(cuda, monkeypatch):
+    from celestia_app_tpu_torch.app import extend_block
+
+    txs = [bytes([i]) * (100 + 37 * i) for i in range(40)]
+    on_cpu = extend_block(txs, device="cpu")
+    for mode in ("on", "off", "epi"):
+        monkeypatch.setenv("CELESTIA_PIPE_FUSED", mode)
+        assert extend_block(txs).data_root() == on_cpu.data_root()
+    assert extend_block([]) is None
