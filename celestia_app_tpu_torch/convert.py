@@ -38,6 +38,11 @@ def codec_tensors(
 ) -> dict[str, torch.Tensor]:
     """{"G_bits": int8 (P*m, n*m), "G_words": int32 (NW, P*m)} on `device`.
 
+    G_bits is a view of a buffer whose rows are n*m rounded up to 16 bytes,
+    zero-filled past n*m: the dense kernel's TMA loads need a row stride
+    that is a multiple of 16 (at k=1, n*m is 8), and padding here, once per
+    codec, keeps the per-call path free of copies.
+
     G_words holds the uint32 words of pack_generator_words bit for bit
     (int32 because torch has no uint32 arithmetic on every device; the
     kernels read the bits, never the sign).
@@ -48,7 +53,10 @@ def codec_tensors(
     if G.size and G.max() > 1:
         raise ValueError("generator_bits must hold only 0 and 1")
     words = pack_generator_words(G.astype(np.uint8))
+    Pm, nm = G.shape
+    padded = np.zeros((Pm, -(-nm // 16) * 16), dtype=np.int8)
+    padded[:, :nm] = G
     return {
-        "G_bits": torch.from_numpy(np.ascontiguousarray(G, dtype=np.int8)).to(device),
+        "G_bits": torch.from_numpy(padded).to(device)[:, :nm],
         "G_words": torch.from_numpy(words.view(np.int32)).to(device),
     }

@@ -43,7 +43,10 @@ LIBRARIES: dict[str, tuple[str, dict[str, list]]] = {
         "sha256_batch": [_P, _L, _I, _P, _P],
         "sha256_leaves": [_P, _P, _L, _P, _P],
     }),
-    "rs_dense": ("rs_dense.cu", {"rs_dense_mod2": [_P, _P, _P, _I, _I, _L, _P]}),
+    "rs_dense": ("rs_dense.cu", {
+        "rs_dense_mod2": [_P, _L, _P, _L, _P, _L, _I, _I, _L, _P],
+        "rs_dense_info": [_P],
+    }),
     "rs_xor": ("rs_xor.cu", {"rs_xor_mod2": [_P, _P, _P, _I, _I, _L, _P]}),
     "rs_xor_leaf": ("rs_xor_leaf.cu", {"rs_xor_leaf": [_P, _P, _P, _P, _I, _I, _I, _I, _P]}),
 }

@@ -4,6 +4,12 @@ On a CUDA tensor `mod2_matmul_planes` launches csrc/rs_dense.cu (the
 counterpart of celestia_app_tpu/kernels/rs_pallas.py and of the XLA dense
 path kernels/rs._mod2_matmul_planes); on a CPU tensor it runs the plain
 version: unpack to bits, int32 matmul, `& 1`, repack LSB-first.
+
+The kernel reads and writes through TMA, which needs each row stride to be
+a multiple of 16 bytes and each base 16-byte aligned.  `tma_rows` gives a
+tensor that already is so back unchanged (the main path: codec_tensors pads
+the generator's rows once, and its column counts are multiples of 256) and
+copies any other into a zero-padded row stride.
 """
 
 from __future__ import annotations
@@ -23,6 +29,33 @@ def _check(G_bits: torch.Tensor, x: torch.Tensor, m: int) -> None:
                          f"x {tuple(x.shape)} at m={m}")
     if G_bits.device != x.device:
         raise ValueError("G_bits and x must be on one device")
+
+
+TMA_ALIGN = 16
+
+
+def padded_width(width: int) -> int:
+    """`width` bytes rounded up to a TMA row stride."""
+    return -(-width // TMA_ALIGN) * TMA_ALIGN
+
+
+def tma_rows(t: torch.Tensor) -> torch.Tensor:
+    """A 2-D byte tensor with unit column stride and a row stride that is a
+    multiple of 16 bytes, equal to `t`: `t` itself when it is so already,
+    else a view of a copy with zero-padded rows."""
+    rows, width = t.shape
+    if t.stride(1) == 1 and t.stride(0) % TMA_ALIGN == 0 and t.stride(0) >= width:
+        return t
+    buf = torch.zeros((rows, padded_width(width)), dtype=t.dtype, device=t.device)
+    buf[:, :width] = t
+    return buf[:, :width]
+
+
+def check_aligned(*tensors: torch.Tensor) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary (TMA's rule)."""
+    for t in tensors:
+        if t.data_ptr() % TMA_ALIGN:
+            raise ValueError(f"tensor at {t.data_ptr():#x} is not {TMA_ALIGN}-byte aligned")
 
 
 def _unpack_bits(x: torch.Tensor) -> torch.Tensor:
@@ -73,8 +106,14 @@ def mod2_matmul_planes(G_bits: torch.Tensor, x: torch.Tensor, m: int) -> torch.T
     _check(G_bits, x, m)
     n, bps, cols = x.shape
     Pm, nm = G_bits.shape
-    G_bits, x = G_bits.contiguous(), x.contiguous()
-    out = torch.empty((Pm // m, bps, cols), dtype=torch.uint8, device=x.device)
+    # (Pm/8, cols) output rows at a padded stride; a plain contiguous tensor
+    # whenever cols is a multiple of 16.
+    out = torch.empty((Pm // 8, padded_width(cols)), dtype=torch.uint8,
+                      device=x.device)[:, :cols]
     if cols:
-        _build.launch("rs_dense", "rs_dense", "rs_dense_mod2", G_bits, x, out, Pm, nm, cols)
-    return out
+        G = tma_rows(G_bits)
+        planes = tma_rows(x.reshape(n * bps, cols))
+        check_aligned(G, planes, out)
+        _build.launch("rs_dense", "rs_dense", "rs_dense_mod2", G, G.stride(0),
+                      planes, planes.stride(0), out, out.stride(0), Pm, nm, cols)
+    return out.view(Pm // m, bps, cols)

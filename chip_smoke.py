@@ -6,9 +6,13 @@
 Phases, in order; any failure raises and the script exits non-zero:
   1. build   every CUDA kernel from celestia_app_tpu_torch/csrc (one nvcc per
              source, started together), print the build seconds, the ptxas
-             register and spill lines, and the card;
+             register and spill lines, the dense kernel's registers per
+             warpgroup role, and the card;
   2. kernels each kernel against its plain PyTorch version on the card at the
-             shapes the main path gives it; every byte must agree;
+             shapes the main path gives it (the RS kernels at k = 1, 2, 16,
+             128, 256, 512, the dense one also on random 0/1 generators at
+             ragged shapes); every byte must agree; times beside the bound
+             and torch._int_mm, the library call for the RS product;
   3. goldens extend_shares on the card reproduces the reference DAH hashes
              (MinDAH, k=2, k=128), under the fused and the fused_epi
              ($CELESTIA_PIPE_FUSED=epi) lowerings;
@@ -16,8 +20,9 @@ Phases, in order; any failure raises and the script exits non-zero:
              root and one EDS through the dense RS kernel, the XOR RS kernel
              and the epilogue kernel (fused_epi on either row-phase seat),
              sampled parity shares == the host RSCodec, sampled leaf digests
-             == hashlib, end-to-end times; the launch counters show that each
-             path ran through its kernels;
+             == hashlib, end-to-end times, device time by kernel under the
+             profiler (every path at k=512, the dense one at k=128 too); the
+             launch counters show that each path ran through its kernels;
   5. block   extend_block on a k=128 block of txs and BlobTxs: one data root
              under the fused, staged and fused_epi lowerings, equal to
              extend_shares of the constructed square; an empty block is None.
@@ -128,6 +133,21 @@ def cuda_ms(torch, fn, reps: int, warm: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
+def rs_dense_roles(_build) -> str:
+    """The dense kernel's tiling and its registers per warpgroup role: ptxas
+    allocates one count for the launch, setmaxnreg moves registers from the
+    producer to the consumers at run time."""
+    import ctypes
+
+    v = (ctypes.c_int * 8)()
+    _build.library("rs_dense").rs_dense_info(v)
+    rows, cols, bk, stages, prod, cons, smem, threads = list(v)
+    return (f"rs_dense: {threads} threads, tiles of {rows} generator rows x {cols} columns, "
+            f"{bk}-bit stages, {stages}-slot ring, {smem} B dynamic shared memory; "
+            f"consumer warpgroups (2: bit expansion + wgmma) {cons} registers, producer "
+            f"warpgroup (TMA + packed-tile transpose) {prod} registers (setmaxnreg)")
+
+
 def max_abs_err(a, b) -> int:
     if a.shape != b.shape:
         raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
@@ -227,61 +247,82 @@ def phase_kernels(torch, table: Table, card: str) -> None:
 
     # RS encodes at the main path's shapes: the row phase contracts axis 1
     # of the ODS (k, k, 512), the column phase axis 0 of the top half
-    # (k, 2k, 512).
-    for k in (128, 512):
+    # (k, 2k, 512).  Both kernels against the plain version at every k of
+    # the path's two fields; timed at k = 128 (GF(2^8)) and 512 (GF(2^16)),
+    # beside torch._int_mm on the unpacked bits, which computes the same
+    # product and is the library yardstick of both rows.
+    for k in (1, 2, 16, 128, 256, 512):
         codec = codec_for_width(k, "vandermonde")
         m = codec.field.m
         t = codec_tensors(codec.generator_bits(), m, dev)
         G_bits, G_words = t["G_bits"], t["G_words"]
         Pm, nm = G_bits.shape
         nw = G_words.shape[0]
+        cores = (
+            ("rs_dense", rs_dense.mod2_matmul_planes, rs_dense.mod2_matmul_planes_plain, G_bits),
+            ("rs_xor", rs_xor.mod2_matmul_planes_xor, rs_xor.mod2_matmul_planes_xor_plain,
+             G_words),
+        )
         for axis, data_shape in ((1, (k, k, 512)), (0, (k, 2 * k, 512))):
             data = rand_bytes(*data_shape)
             want = _encode_with(rs_dense.mod2_matmul_planes_plain, data, G_bits, m, axis)
-            for name, core, plain, G in (
-                ("rs_dense", rs_dense.mod2_matmul_planes,
-                 rs_dense.mod2_matmul_planes_plain, G_bits),
-                ("rs_xor", rs_xor.mod2_matmul_planes_xor,
-                 rs_xor.mod2_matmul_planes_xor_plain, G_words),
-            ):
+            for name, core, plain, G in cores:
                 got = _encode_with(core, data, G, m, axis)
                 e = max_abs_err(got, want)
                 if name == "rs_xor":  # the XOR plain version must agree too
-                    e = max(e, max_abs_err(
-                        _encode_with(plain, data, G, m, axis), want))
+                    e = max(e, max_abs_err(_encode_with(plain, data, G, m, axis), want))
                 table.err(name, e)
                 if e:
                     raise AssertionError(f"{name} != plain at k={k} axis={axis}")
                 del got
-                x = data.movedim(axis, 0)
-                n_, batch, S = x.shape
-                bps = m // 8
-                planes = x.reshape(n_, batch, S // bps, bps).movedim(3, 1).reshape(
-                    n_, bps, -1).contiguous()
-                cols = planes.shape[2]
+            if k not in (128, 512):
+                log(f"[{card}] rs_dense, rs_xor k={k} m={m} axis={axis}: equal to plain")
+                del data, want
+                continue
+            x = data.movedim(axis, 0)
+            n_, batch, S = x.shape
+            bps = m // 8
+            planes = x.reshape(n_, batch, S // bps, bps).movedim(3, 1).reshape(
+                n_, bps, -1).contiguous()
+            cols = planes.shape[2]
+            bits = rs_dense._unpack_bits(planes)
+            G_dense = G_bits.contiguous()
+            lib_ms = cuda_ms(torch, lambda: torch._int_mm(G_dense, bits), reps=3)
+            del bits, G_dense
+            for name, core, plain, G in cores:
                 ms = cuda_ms(torch, lambda: core(G, planes, m), reps=3)
                 plain_ms = cuda_ms(torch, lambda: plain(G, planes, m), reps=1, warm=False)
-                lib_ms = None
                 if name == "rs_dense":
-                    bits = rs_dense._unpack_bits(planes)
-                    lib_ms = cuda_ms(torch, lambda: torch._int_mm(G_bits, bits), reps=3)
-                    del bits
                     b_ms, b_by = bound(Pm * nm + nm // 8 * cols + Pm // 8 * cols,
                                        2.0 * Pm * nm * cols, INT8_OPS_PER_S)
                 else:
                     b_ms, b_by = bound(4 * nw * Pm + 4 * nw * cols + Pm // 8 * cols,
                                        float(Pm) * nw * cols, INT32_OPS_PER_S)
-                lib = f", torch._int_mm {lib_ms:.3f} ms" if lib_ms is not None else ""
                 log(f"[{card}] {name} k={k} m={m} axis={axis} cols={cols}: kernel "
-                    f"{ms:.3f} ms, plain {plain_ms:.3f} ms{lib}, bound {b_ms:.3f} ms "
-                    f"({b_by}), equal")
+                    f"{ms:.3f} ms ({100 * b_ms / ms:.1f}% of bound), plain {plain_ms:.3f} ms, "
+                    f"torch._int_mm {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), equal")
                 if k == 512:
                     table.add(name, ms, plain_ms, b_ms, b_by, lib_ms)
-                del planes
-                torch.cuda.empty_cache()
-            del data, want
+            del planes, data, want
+            torch.cuda.empty_cache()
         del G_bits, G_words, t
         torch.cuda.empty_cache()
+
+    # The dense kernel on random 0/1 generators (not RS ones) at ragged Pm,
+    # nm and cols, whose tiles cut through every edge of its 128 x 256 x 128
+    # tiling; contiguous operands, so the wrapper pads their row strides.
+    for Pm, nm, m in ((24, 40, 8), (32, 48, 16), (136, 264, 8)):
+        G = torch.from_numpy(rng.integers(0, 2, (Pm, nm), dtype=np.int8)).to(dev)
+        for cols in (1, 120, 257, 1000):
+            x = rand_bytes(nm // m, m // 8, cols)
+            e = max_abs_err(rs_dense.mod2_matmul_planes(G, x, m),
+                            rs_dense.mod2_matmul_planes_plain(G, x, m))
+            table.err("rs_dense", e)
+            if e:
+                raise AssertionError(f"rs_dense != plain on a random generator "
+                                     f"Pm={Pm} nm={nm} m={m} cols={cols}")
+    log(f"[{card}] rs_dense on random generators (Pm, nm) = (24, 40), (32, 48), (136, 264) "
+        f"x cols 1, 120, 257, 1000: equal to plain")
 
     # The fused extend + leaf-hash epilogue on the fused_epi column phase's
     # input, the top half (k, 2k, 512): GF(2^8) at k = 1, 2, 128 and
@@ -427,6 +468,10 @@ def phase_full(torch, k: int, construction: str, card: str, seed: int):
     if len(set(roots.values())) != 1:
         raise AssertionError(f"k={k} {construction}: data roots differ across paths: "
                              f"{ {p: r.hex() for p, r in roots.items()} }")
+    for path, core in (("dense", "rs_dense"), ("xor", "rs_xor")):
+        if counts[path][core] != 2:  # the row and the column phase
+            raise AssertionError(f"k={k} {path}: {counts[path][core]} {core} launches per "
+                                 f"extend, want 2")
     for path, row_kernel in (("epi", "rs_dense"), ("epi_xor", "rs_xor")):
         got = {n: counts[path][n] for n in ("rs_xor_leaf", "sha256_leaf", row_kernel)}
         if set(got.values()) != {1}:
@@ -440,7 +485,7 @@ def phase_full(torch, k: int, construction: str, card: str, seed: int):
             run(path)
             times.append((time.perf_counter() - t0) * 1e3)
         e2e[path] = (float(np.median(times)), times)
-        if k == 512:
+        if k == 512 or path == "dense":
             device_breakdown(torch, lambda: run(path), card,
                              f"k={k} {construction} {path} path")
 
@@ -585,6 +630,7 @@ def main() -> int:
             for line in path.read_text().splitlines():
                 if "entry function" in line or "registers" in line or "spill" in line:
                     log(f"ptxas {lib}: {line.strip()}")
+    log(rs_dense_roles(_build))
 
     table = Table()
     phase_kernels(torch, table, card)

@@ -55,7 +55,7 @@ def test_leaf_kernel_equals_plain(cuda):
 
 
 @pytest.mark.parametrize("construction", ["vandermonde", "leopard"])
-@pytest.mark.parametrize("k", [1, 2, 4, 16, 128, 256])
+@pytest.mark.parametrize("k", [1, 2, 4, 16, 128, 256, 512])
 def test_rs_kernels_equal_plain(cuda, k, construction):
     rng = np.random.default_rng(k)
     codec = RSCodec(k, construction)
@@ -71,6 +71,21 @@ def test_rs_kernels_equal_plain(cuda, k, construction):
                            m, axis)
         assert torch.equal(dense.cpu(), want), (k, construction, axis)
         assert torch.equal(xor.cpu(), want), (k, construction, axis)
+
+
+@pytest.mark.parametrize("cols", [1, 120, 257, 1000])
+@pytest.mark.parametrize("Pm,nm,m", [(24, 40, 8), (32, 48, 16), (136, 264, 8)])
+def test_dense_kernel_random_generator(cuda, Pm, nm, m, cols):
+    """A random 0/1 generator at ragged Pm, nm and cols: the tiles cut
+    through every edge of the kernel's 128 x 256 x 128 tiling, and the
+    wrapper pads the contiguous operands' row strides."""
+    rng = np.random.default_rng(Pm * cols + nm)
+    G = torch.from_numpy(rng.integers(0, 2, (Pm, nm), dtype=np.int8))
+    x = _bytes(rng, nm // m, m // 8, cols)
+    before = _build.LAUNCHES["rs_dense"]
+    got = rs_dense.mod2_matmul_planes(G.to(cuda), x.to(cuda), m)
+    assert _build.LAUNCHES["rs_dense"] == before + 1
+    assert torch.equal(got.cpu(), rs_dense.mod2_matmul_planes_plain(G, x, m))
 
 
 @pytest.mark.parametrize("xor", [False, True])
