@@ -48,12 +48,15 @@ LIBRARIES: dict[str, tuple[str, dict[str, list]]] = {
         "rs_dense_info": [_P],
     }),
     "rs_xor": ("rs_xor.cu", {"rs_xor_mod2": [_P, _P, _P, _I, _I, _L, _P]}),
-    "rs_xor_leaf": ("rs_xor_leaf.cu", {"rs_xor_leaf": [_P, _P, _P, _P, _I, _I, _I, _I, _P]}),
+    "rs_dense_leaf": ("rs_dense_leaf.cu", {
+        "rs_dense_leaf": [_P, _L, _P, _L, _P, _P, _I, _I, _I, _I, _P],
+        "rs_dense_leaf_info": [_I, _P],
+    }),
 }
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: dict[str, int] = {
-    "sha256": 0, "sha256_leaf": 0, "rs_dense": 0, "rs_xor": 0, "rs_xor_leaf": 0,
+    "sha256": 0, "sha256_leaf": 0, "rs_dense": 0, "rs_xor": 0, "rs_dense_leaf": 0,
 }
 
 _LOCK = threading.Lock()

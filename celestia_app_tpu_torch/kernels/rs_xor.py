@@ -11,8 +11,10 @@ holding the uint32 bit patterns.
 
 `extend_leaf_digests` is the fused leaf-hash epilogue of the `fused_epi`
 pipeline: the column-phase extend of the top half and the NMT leaf digests
-of the bottom half it produces, in one launch of csrc/rs_xor_leaf.cu (the
+of the bottom half it produces, in one launch of csrc/rs_dense_leaf.cu (the
 counterpart of celestia_app_tpu/kernels/rs_xor.py::extend_leaf_digests).
+The name and place are the JAX module's; the kernel computes the product
+on int8 tensor cores (the dense kernel's main loop), not with XOR words.
 """
 
 from __future__ import annotations
@@ -23,7 +25,13 @@ from celestia_app_tpu_torch.constants import SHARE_SIZE
 from celestia_app_tpu_torch.device import resolve_device
 from celestia_app_tpu_torch.kernels import _build
 from celestia_app_tpu_torch.kernels.nmt import leaf_digests, parity_namespaces
-from celestia_app_tpu_torch.kernels.rs_dense import _pack_bits
+from celestia_app_tpu_torch.kernels.rs_dense import (
+    _check as _check_dense,
+    _pack_bits,
+    check_aligned,
+    mod2_matmul_planes_plain,
+    tma_rows,
+)
 from celestia_app_tpu_torch.kernels.sha256 import sha256_leaves_plain
 
 
@@ -113,46 +121,59 @@ def _check_top(top: torch.Tensor, m: int) -> None:
 
 
 def extend_leaf_digests_plain(
-    top: torch.Tensor, G_words: torch.Tensor, m: int
+    top: torch.Tensor, G_bits: torch.Tensor, m: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of the epilogue kernel: the column-phase
-    XOR encode of `top`, then sha256(0x00 || 0xFF^29 || share) per share."""
+    dense encode of `top`, then sha256(0x00 || 0xFF^29 || share) per share."""
     from celestia_app_tpu_torch.kernels.rs import _encode_with  # rs imports this module
 
     _check_top(top, m)
-    bottom = _encode_with(mod2_matmul_planes_xor_plain, top, G_words, m, 0)
+    bottom = _encode_with(mod2_matmul_planes_plain, top, G_bits, m, 0)
     P, n2, S = bottom.shape
     flat = bottom.reshape(P * n2, S)
     hashes = sha256_leaves_plain(parity_namespaces((P * n2,), top.device), flat)
     return bottom, hashes.reshape(P, n2, 32)
 
 
+def leaf_operands(
+    top: torch.Tensor, G_bits: torch.Tensor, m: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The epilogue kernel's two inputs: the generator with a TMA row stride
+    (rs_dense.tma_rows) and the half square as (n, n2*512) rows of shares.
+
+    The kernel reads the shares as they lie.  Row j of the second is byte
+    row j of the byte planes at m=8; at m=16 its bytes 2c and 2c + 1 are
+    byte rows 2j and 2j + 1 of plane column c, which the kernel's consumer
+    threads de-interleave as they read them (rs_dense.cuh, kXBps = 2)."""
+    _check_top(top, m)
+    n, n2, S = top.shape
+    bps = m // 8
+    _check_dense(G_bits, top.reshape(n, bps, -1), m)
+    rows = top.contiguous().view(n, n2 * S)
+    return tma_rows(G_bits), rows
+
+
 def extend_leaf_digests(
-    top: torch.Tensor, G_words: torch.Tensor, m: int
+    top: torch.Tensor, G_bits: torch.Tensor, m: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Column-phase extend + bottom-half NMT leaf digests in one launch.
 
-    top: (k, 2k, 512) uint8, the row-extended top half; the contraction
-    runs over axis 0.  G_words: (NW, P*m) int32.  Returns bottom (P, 2k,
-    512) uint8, equal to encode(top, 0), and hashes (P, 2k, 32) uint8,
-    equal to sha256(0x00 || 0xFF^29 || share) for each bottom share."""
+    top: (n, n2, 512) uint8, the row-extended top half ((k, 2k, 512) on the
+    main path); the contraction runs over axis 0.  G_bits: (P*m, n*m) int8
+    {0,1}.  Returns bottom (P, n2, 512) uint8, equal to encode(top, 0), and
+    hashes (P, n2, 32) uint8, equal to sha256(0x00 || 0xFF^29 || share) for
+    each bottom share."""
     if top.device.type == "cpu":
-        return extend_leaf_digests_plain(top, G_words, m)
-    _check_top(top, m)
-    k, n2, S = top.shape
-    bps = m // 8
-    nsym = S // bps
-    # Column b*nsym + sym of the planes holds symbol sym of batch column b.
-    planes = top.reshape(k, n2, nsym, bps).movedim(3, 1).reshape(k, bps, n2 * nsym)
-    _check(G_words, planes, m)
-    nw, Pm = G_words.shape
-    B = pack_data_words(planes)
-    G_words = G_words.contiguous()
+        return extend_leaf_digests_plain(top, G_bits, m)
+    G, rows = leaf_operands(top, G_bits, m)
+    _, n2, S = top.shape
+    Pm, nm = G_bits.shape
     bottom = torch.empty((Pm // m, n2, S), dtype=torch.uint8, device=top.device)
     hashes = torch.empty((Pm // m, n2, 32), dtype=torch.uint8, device=top.device)
     if bottom.numel():
-        _build.launch("rs_xor_leaf", "rs_xor_leaf", "rs_xor_leaf", G_words, B, bottom,
-                      hashes, nw, Pm, n2, m)
+        check_aligned(G, rows, bottom, hashes)
+        _build.launch("rs_dense_leaf", "rs_dense_leaf", "rs_dense_leaf", G, G.stride(0), rows,
+                      rows.stride(0), bottom, hashes, Pm, nm, n2, m)
     return bottom, hashes
 
 
@@ -160,9 +181,9 @@ def bottom_leaf_fn(k: int, construction: str | None = None, *, fallback_encode,
                    device=None):
     """f(top) -> (bottom, leaf_hashes) for the fused_epi pipeline.
 
-    On CUDA: the epilogue kernel, always on the XOR schedule (the
-    counterpart of the TPU branch of
-    celestia_app_tpu/kernels/rs_xor.py::bottom_leaf_fn).  On the CPU: the
+    On CUDA: the epilogue kernel under every $CELESTIA_RS_XOR value, as
+    the TPU branch of celestia_app_tpu/kernels/rs_xor.py::bottom_leaf_fn
+    ignores the RS seat.  On the CPU: the
     seated encode `fallback_encode` (required: the caller built it, and
     the epilogue must not fork the RS seat there), then the leaf digests
     under the parity namespace.  Both give the same bytes."""
@@ -172,10 +193,10 @@ def bottom_leaf_fn(k: int, construction: str | None = None, *, fallback_encode,
     dev = resolve_device(device)
     if dev.type == "cuda":
         m, tensors = _codec_tensors(k, construction or active_construction(), dev)
-        G_words = tensors["G_words"]
+        G_bits = tensors["G_bits"]
 
         def fn(top: torch.Tensor):
-            return extend_leaf_digests(top, G_words, m)
+            return extend_leaf_digests(top, G_bits, m)
 
         return fn
 

@@ -1,17 +1,24 @@
-"""Time build variants of the dense RS kernel on the card.
+"""Time build variants of the two tensor-core RS kernels on the card.
 
     python -m celestia_app_tpu_torch.kernels.sweep_rs_dense
 
-Each variant is csrc/rs_dense.cu with one or two compile-time constants
-replaced (ring slots, generator bands walked together) or with the wgmma
-issue removed ("no_mma": the loads, the transpose and the bit expansion
-alone, which shows whether the tensor work or the data path holds the
-kernel back).  All variants build in parallel into the package's build
-directory and run at two main-path shapes: the k=512 row phase (GF(2^16),
-cols 131,072) and the k=128 column phase (GF(2^8), cols 131,072).  Each
-line gives the mean of CUDA-event timed launches and the share of the int8
-operations bound; the variants that keep the wgmma are checked byte for
-byte against the built-in kernel.  Needs an NVIDIA card and nvcc.
+Each variant is a kernel's source (csrc/rs_dense.cu or csrc/rs_dense_leaf.cu,
+with the shared main loop csrc/rs_dense.cuh) with one compile-time constant
+or line replaced.  Dense kernel: ring slots, generator bands walked
+together, and "no_mma" (the wgmma issue removed: the loads and the bit
+expansion alone, which shows whether the tensor work or the data path
+holds the kernel back).  Leaf-hash epilogue kernel: where the hash runs
+(on producer warps 1-3, built in, or on the consumers after each item),
+the GF(2^16) input read in share order or as a byte-plane copy, ring
+slots, the hash removed ("leaf_no_hash": the product and the stores
+alone) and the wgmma removed.  All variants build in parallel into the
+package's build directory.  The dense kernel runs at two main-path shapes
+(the k=512 row phase, GF(2^16), cols 131,072; the k=128 column phase,
+GF(2^8), cols 131,072), the epilogue kernel at the fused_epi column phase
+of k=512 and k=128.  Each line gives the mean of CUDA-event timed launches
+and the share of the int8 operations bound; the variants that compute the
+whole function are checked byte for byte against the built-in kernel.
+Needs an NVIDIA card and nvcc.
 """
 
 from __future__ import annotations
@@ -25,63 +32,107 @@ import torch
 
 from celestia_app_tpu_torch.convert import codec_tensors
 from celestia_app_tpu_torch.gf.rs import codec_for_width
-from celestia_app_tpu_torch.kernels import _build, rs_dense
+from celestia_app_tpu_torch.kernels import _build, rs_dense, rs_xor
 
 INT8_OPS_PER_S = 1.979e15  # H100 SXM dense int8 peak (data sheet, 700 W)
 
 STAGES = "constexpr int STAGES = 4;"
 GROUP = "constexpr int GROUP_M = 8;"
 MMA = "wgmma_s8(d, a[kk], db + 2 * kk, (kb > 0 || kk > 0) ? 1 : 0);"
+MODE = "constexpr int kHashMode = 1;"
+ORDER = "constexpr bool kShareOrder = true;"
+HASH = "for (int blk = 0; blk < kSha; ++blk) leaf_block(st, row, blk);"
 
+# kernel library -> {variant: [(text, replacement)]}; the variants whose
+# name ends in "no_mma" or "no_hash" skip a part of the function.
 VARIANTS = {
-    "stages4_group8": [],
-    "stages3": [(STAGES, "constexpr int STAGES = 3;")],
-    "stages5": [(STAGES, "constexpr int STAGES = 5;")],
-    "stages6": [(STAGES, "constexpr int STAGES = 6;")],
-    "group4": [(GROUP, "constexpr int GROUP_M = 4;")],
-    "group16": [(GROUP, "constexpr int GROUP_M = 16;")],
-    "no_mma": [(MMA, "")],
+    "rs_dense": {
+        "stages4_group8": [],
+        "stages3": [(STAGES, "constexpr int STAGES = 3;")],
+        "stages5": [(STAGES, "constexpr int STAGES = 5;")],
+        "stages6": [(STAGES, "constexpr int STAGES = 6;")],
+        "group4": [(GROUP, "constexpr int GROUP_M = 4;")],
+        "group16": [(GROUP, "constexpr int GROUP_M = 16;")],
+        "no_mma": [(MMA, "")],
+    },
+    "rs_dense_leaf": {
+        "leaf": [],
+        "leaf_hash_after_item": [(MODE, "constexpr int kHashMode = 0;")],
+        "leaf_planes": [(ORDER, "constexpr bool kShareOrder = false;")],
+        "leaf_stages3": [(STAGES, "constexpr int STAGES = 3;")],
+        "leaf_stages5": [(STAGES, "constexpr int STAGES = 5;")],
+        "leaf_no_hash": [(HASH, "")],
+        "leaf_no_mma": [(MMA, "")],
+    },
 }
 
 
+def _partial(name: str) -> bool:
+    return name.endswith(("no_mma", "no_hash"))
+
+
 def build_variants() -> dict[str, ctypes.CDLL]:
-    source = (_build.CSRC / "rs_dense.cu").read_text()
+    """Every variant of VARIANTS built (all nvcc processes at once) and
+    loaded; each in a directory of its own with its copies of the headers."""
     out = _build.BUILD_DIR / "sweep"
-    out.mkdir(parents=True, exist_ok=True)
+    headers = {p.name: p.read_text() for p in _build.CSRC.glob("*.cuh")}
     procs = {}
-    for name, subs in VARIANTS.items():
-        text = source
-        for old, new in subs:
-            if old not in text:
-                raise RuntimeError(f"variant {name}: {old!r} is not in rs_dense.cu")
-            text = text.replace(old, new)
-        cu, so = out / f"{name}.cu", out / f"lib{name}.so"
-        cu.write_text(text)
-        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), so)
+    for lib, variants in VARIANTS.items():
+        source = _build.LIBRARIES[lib][0]
+        for name, subs in variants.items():
+            texts = {**headers, source: (_build.CSRC / source).read_text()}
+            for old, new in subs:
+                hits = [f for f, text in texts.items() if old in text]
+                if len(hits) != 1:
+                    raise RuntimeError(f"variant {name}: {old!r} is in {hits}, want one file")
+                texts[hits[0]] = texts[hits[0]].replace(old, new)
+            d = out / name
+            d.mkdir(parents=True, exist_ok=True)
+            for f, text in texts.items():
+                (d / f).write_text(text)
+            so = d / f"lib{name}.so"
+            cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(d / source)]
+            procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.STDOUT, text=True), so)
     libs = {}
-    for name, (proc, so) in procs.items():
+    for name, (lib, proc, so) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
-        lib = ctypes.CDLL(str(so))
-        lib.rs_dense_mod2.argtypes = _build.LIBRARIES["rs_dense"][1]["rs_dense_mod2"]
-        lib.rs_dense_mod2.restype = ctypes.c_int
-        libs[name] = lib
+        for line in log.splitlines():
+            if "Used" in line or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}", flush=True)
+        handle = ctypes.CDLL(str(so))
+        for fn, argtypes in _build.LIBRARIES[lib][1].items():
+            getattr(handle, fn).argtypes = argtypes
+            getattr(handle, fn).restype = ctypes.c_int
+        libs[name] = handle
     return libs
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("sweep_rs_dense: no CUDA device is available", file=sys.stderr)
-        return 1
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip().splitlines()[0]
-    libs = build_variants()
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(3)
+def _time(call, reps: int) -> float:
+    call()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        call()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _launcher(name: str, fn, *args):
+    def call():
+        rc = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args),
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"variant {name} failed to launch: {rc}")
+    return call
+
+
+def sweep_dense(libs, card: str, dev, rng) -> None:
     for k, axis, shape in ((512, 1, (512, 512, 512)), (128, 0, (128, 256, 512))):
         codec = codec_for_width(k, "vandermonde")
         m = codec.field.m
@@ -95,34 +146,75 @@ def main() -> int:
         cols = planes.shape[1]
         want = rs_dense.mod2_matmul_planes(G, planes.view(n, bps, cols), m).reshape(Pm // 8, cols)
         bound_ms = 2.0 * Pm * nm * cols / INT8_OPS_PER_S * 1e3
-        stream = torch.cuda.current_stream().cuda_stream
-        for name, lib in libs.items():
+        for name in VARIANTS["rs_dense"]:
             out = torch.empty((Pm // 8, cols), dtype=torch.uint8, device=dev)
-
-            def call():
-                rc = lib.rs_dense_mod2(G.data_ptr(), G.stride(0), planes.data_ptr(),
-                                       planes.stride(0), out.data_ptr(), out.stride(0), Pm, nm,
-                                       cols, stream)
-                if rc:
-                    raise RuntimeError(f"variant {name} failed to launch: {rc}")
-
+            call = _launcher(name, libs[name].rs_dense_mod2, G, G.stride(0), planes,
+                             planes.stride(0), out, out.stride(0), Pm, nm, cols)
             call()
             torch.cuda.synchronize()
-            equal = torch.equal(out, want)
-            if name != "no_mma" and not equal:
+            if not _partial(name) and not torch.equal(out, want):
                 raise AssertionError(f"variant {name} != the built-in kernel at k={k}")
-            reps = 5 if k == 512 else 20
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(reps):
-                call()
-            end.record()
-            torch.cuda.synchronize()
-            ms = start.elapsed_time(end) / reps
-            print(f"[{card}] k={k} m={m} axis={axis} cols={cols} {name}: {ms:.3f} ms, "
+            ms = _time(call, 5 if k == 512 else 20)
+            print(f"[{card}] rs_dense k={k} m={m} axis={axis} cols={cols} {name}: {ms:.3f} ms, "
                   f"{100 * bound_ms / ms:.1f}% of the {bound_ms:.3f} ms bound"
-                  f"{'' if name == 'no_mma' else ', equal'}", flush=True)
+                  f"{'' if _partial(name) else ', equal'}", flush=True)
+
+
+def sweep_leaf(libs, card: str, dev, rng) -> None:
+    for k in (512, 128):
+        codec = codec_for_width(k, "vandermonde")
+        m = codec.field.m
+        bps = m // 8
+        G_bits = codec_tensors(codec.generator_bits(), m, dev)["G_bits"]
+        Pm, nm = G_bits.shape
+        n2 = 2 * k
+        top = torch.from_numpy(rng.integers(0, 256, (k, n2, 512), dtype=np.uint8)).to(dev)
+        want = rs_xor.extend_leaf_digests(top, G_bits, m)
+        G, rows = rs_xor.leaf_operands(top, G_bits, m)
+
+        def to_planes():
+            x = top.reshape(k, n2, 512 // bps, bps).movedim(3, 1)
+            return x.reshape(k * bps, -1).contiguous()
+
+        planes = to_planes()
+        copy_ms = _time(to_planes, 5)
+        cols = n2 * 4096 // m
+        bound_ms = 2.0 * Pm * nm * cols / INT8_OPS_PER_S * 1e3
+        for name in VARIANTS["rs_dense_leaf"]:
+            lib = libs[name]
+            info = (ctypes.c_int * 12)()
+            lib.rs_dense_leaf_info(m, info)
+            x = rows if info[10] or m == 8 else planes  # share order, else byte planes
+            bottom = torch.empty_like(want[0])
+            hashes = torch.empty_like(want[1])
+            call = _launcher(name, lib.rs_dense_leaf, G, G.stride(0), x, x.stride(0), bottom,
+                             hashes, Pm, nm, n2, m)
+            call()
+            torch.cuda.synchronize()
+            equal = torch.equal(bottom, want[0]) and torch.equal(hashes, want[1])
+            if not _partial(name) and not equal:
+                raise AssertionError(f"variant {name} != the built-in kernel at k={k}")
+            ms = _time(call, 5 if k == 512 else 20)
+            note = f" (+ {copy_ms:.3f} ms for the plane copy it needs)" if x is planes else ""
+            print(f"[{card}] rs_dense_leaf k={k} m={m} cols={cols} {name}: {ms:.3f} ms{note}, "
+                  f"{100 * bound_ms / ms:.1f}% of the {bound_ms:.3f} ms int8 bound"
+                  f"{'' if _partial(name) else ', equal'}", flush=True)
+        del top, planes, rows, want
+        torch.cuda.empty_cache()
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("sweep_rs_dense: no CUDA device is available", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    libs = build_variants()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    sweep_dense(libs, card, dev, rng)
+    sweep_leaf(libs, card, dev, rng)
     return 0
 
 

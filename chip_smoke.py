@@ -6,13 +6,16 @@
 Phases, in order; any failure raises and the script exits non-zero:
   1. build   every CUDA kernel from celestia_app_tpu_torch/csrc (one nvcc per
              source, started together), print the build seconds, the ptxas
-             register and spill lines, the dense kernel's registers per
-             warpgroup role, and the card;
+             register and spill lines, the two tensor-core kernels'
+             registers per warpgroup role, tiling and shared memory, and the
+             card;
   2. kernels each kernel against its plain PyTorch version on the card at the
-             shapes the main path gives it (the RS kernels at k = 1, 2, 16,
-             128, 256, 512, the dense one also on random 0/1 generators at
-             ragged shapes); every byte must agree; times beside the bound
-             and torch._int_mm, the library call for the RS product;
+             shapes the main path gives it (the RS kernels and the epilogue
+             at k = 1, 2, 16, 128, 256, 512, the dense one and the epilogue
+             also on random 0/1 generators at ragged shapes); every byte
+             must agree; times beside the bound and torch._int_mm, the
+             library call for the RS product, and for the epilogue the
+             unfused pair that computes the same function;
   3. goldens extend_shares on the card reproduces the reference DAH hashes
              (MinDAH, k=2, k=128), under the fused and the fused_epi
              ($CELESTIA_PIPE_FUSED=epi) lowerings;
@@ -76,8 +79,8 @@ KERNELS = {
         "route": "cuda", "source": "celestia_app_tpu_torch/csrc/rs_xor.cu",
         "replaces": "celestia_app_tpu/kernels/rs_xor.py:159",
     },
-    "rs_xor_leaf": {
-        "route": "cuda", "source": "celestia_app_tpu_torch/csrc/rs_xor_leaf.cu",
+    "rs_dense_leaf": {
+        "route": "cuda", "source": "celestia_app_tpu_torch/csrc/rs_dense_leaf.cu",
         "replaces": "celestia_app_tpu/kernels/rs_xor.py:272",
     },
 }
@@ -86,8 +89,8 @@ KERNELS = {
 PATHS = {
     "dense": ({"CELESTIA_RS_XOR": "off", "CELESTIA_PIPE_FUSED": "on"}, "rs_dense"),
     "xor": ({"CELESTIA_RS_XOR": "on", "CELESTIA_PIPE_FUSED": "on"}, "rs_xor"),
-    "epi": ({"CELESTIA_RS_XOR": "off", "CELESTIA_PIPE_FUSED": "epi"}, "rs_xor_leaf"),
-    "epi_xor": ({"CELESTIA_RS_XOR": "on", "CELESTIA_PIPE_FUSED": "epi"}, "rs_xor_leaf"),
+    "epi": ({"CELESTIA_RS_XOR": "off", "CELESTIA_PIPE_FUSED": "epi"}, "rs_dense_leaf"),
+    "epi_xor": ({"CELESTIA_RS_XOR": "on", "CELESTIA_PIPE_FUSED": "epi"}, "rs_dense_leaf"),
 }
 
 
@@ -144,8 +147,30 @@ def rs_dense_roles(_build) -> str:
     rows, cols, bk, stages, prod, cons, smem, threads = list(v)
     return (f"rs_dense: {threads} threads, tiles of {rows} generator rows x {cols} columns, "
             f"{bk}-bit stages, {stages}-slot ring, {smem} B dynamic shared memory; "
-            f"consumer warpgroups (2: bit expansion + wgmma) {cons} registers, producer "
-            f"warpgroup (TMA + packed-tile transpose) {prod} registers (setmaxnreg)")
+            f"consumer warpgroups (2: packed-tile reads, bit expansion, wgmma) {cons} registers, "
+            f"producer warpgroup (TMA on one thread) {prod} registers (setmaxnreg)")
+
+
+def rs_dense_leaf_roles(_build) -> str:
+    """The epilogue kernel's tiling, shared memory and registers per role
+    at both symbol widths (its main loop is the dense kernel's)."""
+    import ctypes
+
+    parts = []
+    for m in (8, 16):
+        v = (ctypes.c_int * 12)()
+        if _build.library("rs_dense_leaf").rs_dense_leaf_info(m, v):
+            raise RuntimeError(f"rs_dense_leaf_info({m}) failed")
+        rows, cols, bk, stages, prod, cons, smem, threads, shares, tiles, order, mode = list(v)
+        parts.append(f"m={m}: items of {rows} generator rows ({shares} shares) x {tiles} column "
+                     f"tiles of {cols}, {smem} B dynamic shared memory, input "
+                     f"{'in share order' if order else 'as byte planes'}")
+    where = {0: "the consumers after each item",
+             1: "producer warps 1-3 beside the next item"}[mode]
+    return (f"rs_dense_leaf: {threads} threads, {bk}-bit stages, {stages}-slot ring, consumer "
+            f"warpgroups (2: packed-tile reads, bit expansion, wgmma, share-tile scatter) {cons} "
+            f"registers, producer warpgroup (TMA on one thread) {prod} (setmaxnreg); stores and "
+            f"hash on {where}; " + "; ".join(parts))
 
 
 def max_abs_err(a, b) -> int:
@@ -154,9 +179,12 @@ def max_abs_err(a, b) -> int:
     return int((a.int() - b.int()).abs().max().item()) if a.numel() else 0
 
 
-def bound(bytes_moved: float, ops: float, ops_rate: float) -> tuple[float, str]:
+def bound(bytes_moved: float, *work: tuple[float, float]) -> tuple[float, str]:
+    """The least time in ms of a kernel that moves `bytes_moved` and does
+    each (operations, peak rate) of `work` on its own pipe: the pipes and
+    the memory run concurrently, so the largest of their times."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = ops / ops_rate
+    t_ops = max(ops / rate for ops, rate in work)
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -217,7 +245,7 @@ def phase_kernels(torch, table: Table, card: str) -> None:
         ms = cuda_ms(torch, lambda: sha.sha256(msgs), reps=5)
         plain_ms = cuda_ms(torch, lambda: sha.sha256_plain(msgs), reps=1, warm=False)
         nb = (L + 9 + 63) // 64
-        b_ms, b_by = bound(n * (L + 32), n * nb * SHA_OPS_PER_COMPRESSION, INT32_OPS_PER_S)
+        b_ms, b_by = bound(n * (L + 32), (n * nb * SHA_OPS_PER_COMPRESSION, INT32_OPS_PER_S))
         log(f"[{card}] sha256 N={n} L={L}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}), equal")
         if (n, L) == main_node_shape:
@@ -237,8 +265,8 @@ def phase_kernels(torch, table: Table, card: str) -> None:
         ms = cuda_ms(torch, lambda: sha.sha256_leaves(ns, shares), reps=5)
         plain_ms = cuda_ms(torch, lambda: sha.sha256_leaves_plain(ns, shares), reps=1,
                            warm=False)
-        b_ms, b_by = bound(n * (29 + 512 + 32), n * 9 * SHA_OPS_PER_COMPRESSION,
-                           INT32_OPS_PER_S)
+        b_ms, b_by = bound(n * (29 + 512 + 32), (n * 9 * SHA_OPS_PER_COMPRESSION,
+                                                 INT32_OPS_PER_S))
         log(f"[{card}] sha256_leaf N={n}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}), equal")
         if k == 512:
@@ -294,10 +322,10 @@ def phase_kernels(torch, table: Table, card: str) -> None:
                 plain_ms = cuda_ms(torch, lambda: plain(G, planes, m), reps=1, warm=False)
                 if name == "rs_dense":
                     b_ms, b_by = bound(Pm * nm + nm // 8 * cols + Pm // 8 * cols,
-                                       2.0 * Pm * nm * cols, INT8_OPS_PER_S)
+                                       (2.0 * Pm * nm * cols, INT8_OPS_PER_S))
                 else:
                     b_ms, b_by = bound(4 * nw * Pm + 4 * nw * cols + Pm // 8 * cols,
-                                       float(Pm) * nw * cols, INT32_OPS_PER_S)
+                                       (float(Pm) * nw * cols, INT32_OPS_PER_S))
                 log(f"[{card}] {name} k={k} m={m} axis={axis} cols={cols}: kernel "
                     f"{ms:.3f} ms ({100 * b_ms / ms:.1f}% of bound), plain {plain_ms:.3f} ms, "
                     f"torch._int_mm {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), equal")
@@ -325,41 +353,88 @@ def phase_kernels(torch, table: Table, card: str) -> None:
         f"x cols 1, 120, 257, 1000: equal to plain")
 
     # The fused extend + leaf-hash epilogue on the fused_epi column phase's
-    # input, the top half (k, 2k, 512): GF(2^8) at k = 1, 2, 128 and
-    # GF(2^16) at k = 256, 512.
-    for k in (1, 2, 128, 256, 512):
-        codec = codec_for_width(k, "vandermonde")
+    # input, the top half (k, 2k, 512): GF(2^8) at k = 1, 2, 16, 128 (and
+    # k=128 leopard), GF(2^16) at k = 256, 512.  Timed at k = 128 and 512
+    # beside its bound (int8 tensor operations of the product and int32
+    # operations of the hashes, on pipes that run side by side, and the
+    # bytes) and beside the unfused pair that computes the same function on
+    # the fused path: the rs_dense column phase with its plane copy and
+    # regroup, then sha256_leaves on the bottom half.  The two are timed in
+    # turns (kernel, pair, pair, kernel).
+    from celestia_app_tpu_torch.kernels.nmt import parity_namespaces
+
+    for k, construction in ((1, "vandermonde"), (2, "vandermonde"), (16, "vandermonde"),
+                            (128, "vandermonde"), (128, "leopard"), (256, "vandermonde"),
+                            (512, "vandermonde")):
+        codec = codec_for_width(k, construction)
         m = codec.field.m
-        G_words = codec_tensors(codec.generator_bits(), m, dev)["G_words"]
-        nw, Pm = G_words.shape
+        G_bits = codec_tensors(codec.generator_bits(), m, dev)["G_bits"]
+        Pm, nm = G_bits.shape
         top = rand_bytes(k, 2 * k, 512)
-        bottom, hashes = rs_xor.extend_leaf_digests(top, G_words, m)
-        want_bottom, want_hashes = rs_xor.extend_leaf_digests_plain(top, G_words, m)
+        bottom, hashes = rs_xor.extend_leaf_digests(top, G_bits, m)
+        want_bottom, want_hashes = rs_xor.extend_leaf_digests_plain(top, G_bits, m)
         e = max(max_abs_err(bottom, want_bottom), max_abs_err(hashes, want_hashes))
-        table.err("rs_xor_leaf", e)
+        table.err("rs_dense_leaf", e)
         if e:
-            raise AssertionError(f"rs_xor_leaf != plain at k={k} m={m}")
+            raise AssertionError(f"rs_dense_leaf != plain at k={k} {construction}")
         n_leaves = k * 2 * k
         for idx in rng.choice(n_leaves, min(64, n_leaves), replace=False):
             i, j = divmod(int(idx), 2 * k)
             msg = b"\x00" + b"\xff" * 29 + bottom[i, j].cpu().numpy().tobytes()
             if hashes[i, j].cpu().numpy().tobytes() != hashlib.sha256(msg).digest():
-                raise AssertionError(f"rs_xor_leaf digest ({i}, {j}) != hashlib at k={k}")
+                raise AssertionError(f"rs_dense_leaf digest ({i}, {j}) != hashlib at k={k}")
         del want_bottom, want_hashes
-        ms = cuda_ms(torch, lambda: rs_xor.extend_leaf_digests(top, G_words, m), reps=3)
-        plain_ms = cuda_ms(torch, lambda: rs_xor.extend_leaf_digests_plain(top, G_words, m),
+        if k not in (128, 512) or construction != "vandermonde":
+            log(f"[{card}] rs_dense_leaf k={k} m={m} {construction}: equal to plain; "
+                f"{min(64, n_leaves)} digests == hashlib")
+            del top, bottom, hashes, G_bits
+            continue
+        par_ns = parity_namespaces((n_leaves,), dev)
+
+        def leaf():
+            rs_xor.extend_leaf_digests(top, G_bits, m)
+
+        def pair():
+            b = _encode_with(rs_dense.mod2_matmul_planes, top, G_bits, m, 0)
+            sha.sha256_leaves(par_ns, b.reshape(n_leaves, 512))
+
+        reps = 5
+        t_leaf = [round(cuda_ms(torch, leaf, reps), 3)]
+        t_pair = [round(cuda_ms(torch, pair, reps), 3) for _ in range(2)]
+        t_leaf.append(round(cuda_ms(torch, leaf, reps), 3))
+        ms, pair_ms = float(np.mean(t_leaf)), float(np.mean(t_pair))
+        plain_ms = cuda_ms(torch, lambda: rs_xor.extend_leaf_digests_plain(top, G_bits, m),
                            reps=1, warm=False)
         cols = 2 * k * (512 * 8 // m)
-        b_ms, b_by = bound(top.numel() + 4 * nw * Pm + bottom.numel() + hashes.numel(),
-                           float(Pm) * nw * cols + n_leaves * 9 * SHA_OPS_PER_COMPRESSION,
-                           INT32_OPS_PER_S)
-        log(f"[{card}] rs_xor_leaf k={k} m={m} NW={nw} cols={cols}: kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), equal; "
-            f"{min(64, n_leaves)} digests == hashlib")
+        b_ms, b_by = bound(top.numel() + Pm * nm + bottom.numel() + hashes.numel(),
+                           (2.0 * Pm * nm * cols, INT8_OPS_PER_S),
+                           (n_leaves * 9.0 * SHA_OPS_PER_COMPRESSION, INT32_OPS_PER_S))
+        log(f"[{card}] rs_dense_leaf k={k} m={m} Pm={Pm} nm={nm} cols={cols}: kernel "
+            f"{ms:.3f} ms {t_leaf} ({100 * b_ms / ms:.1f}% of bound), unfused pair (rs_dense "
+            f"column phase + regroup + sha256_leaves) {pair_ms:.3f} ms {t_pair}, plain "
+            f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}: int8 tensor operations), "
+            f"equal; {min(64, n_leaves)} digests == hashlib")
         if k == 512:
-            table.add("rs_xor_leaf", ms, plain_ms, b_ms, b_by)
-        del top, bottom, hashes, G_words
+            table.add("rs_dense_leaf", ms, plain_ms, b_ms, b_by)
+        del top, bottom, hashes, G_bits
         torch.cuda.empty_cache()
+
+    # The epilogue on random 0/1 generators with P != n (bands that end
+    # inside a share tile, contraction stages past n, any batch-column
+    # count); contiguous generators, so the wrapper pads their row strides.
+    for m in (8, 16):
+        for n, P, n2 in ((3, 5, 7), (17, 9, 3), (40, 24, 5)):
+            G = torch.from_numpy(rng.integers(0, 2, (P * m, n * m), dtype=np.int8)).to(dev)
+            top = rand_bytes(n, n2, 512)
+            got = rs_xor.extend_leaf_digests(top, G, m)
+            want = rs_xor.extend_leaf_digests_plain(top, G, m)
+            e = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+            table.err("rs_dense_leaf", e)
+            if e:
+                raise AssertionError(f"rs_dense_leaf != plain on a random generator "
+                                     f"n={n} P={P} n2={n2} m={m}")
+    log(f"[{card}] rs_dense_leaf on random generators (n, P, 2k) = (3, 5, 7), (17, 9, 3), "
+        f"(40, 24, 5) at m = 8, 16: equal to plain")
 
 
 def golden_share() -> bytes:
@@ -472,10 +547,13 @@ def phase_full(torch, k: int, construction: str, card: str, seed: int):
         if counts[path][core] != 2:  # the row and the column phase
             raise AssertionError(f"k={k} {path}: {counts[path][core]} {core} launches per "
                                  f"extend, want 2")
-    for path, row_kernel in (("epi", "rs_dense"), ("epi_xor", "rs_xor")):
-        got = {n: counts[path][n] for n in ("rs_xor_leaf", "sha256_leaf", row_kernel)}
-        if set(got.values()) != {1}:
-            raise AssertionError(f"k={k} {path}: launches per extend {got}, want 1 each")
+    for path, row_kernel, other in (("epi", "rs_dense", "rs_xor"),
+                                    ("epi_xor", "rs_xor", "rs_dense")):
+        # One RS launch, the row phase's: the column phase is the epilogue's.
+        got = {n: counts[path][n] for n in ("rs_dense_leaf", "sha256_leaf", row_kernel, other)}
+        if got != {"rs_dense_leaf": 1, "sha256_leaf": 1, row_kernel: 1, other: 0}:
+            raise AssertionError(f"k={k} {path}: launches per extend {got}, want 1 each "
+                                 f"and no {other}")
 
     e2e = {}
     for path in PATHS:
@@ -631,6 +709,7 @@ def main() -> int:
                 if "entry function" in line or "registers" in line or "spill" in line:
                     log(f"ptxas {lib}: {line.strip()}")
     log(rs_dense_roles(_build))
+    log(rs_dense_leaf_roles(_build))
 
     table = Table()
     phase_kernels(torch, table, card)

@@ -104,21 +104,21 @@ def test_pipeline_on_card_equals_cpu(cuda, xor, monkeypatch):
 
 @pytest.mark.parametrize("k,construction", [
     (1, "vandermonde"), (2, "leopard"), (4, "vandermonde"), (16, "leopard"),
-    (128, "vandermonde"), (256, "leopard"), (256, "vandermonde"),
+    (128, "vandermonde"), (256, "leopard"), (256, "vandermonde"), (512, "vandermonde"),
 ])
 def test_epilogue_kernel_equals_plain(cuda, k, construction):
     """The fused extend + leaf-hash kernel against its plain version on the
-    same card tensors; k = 256 runs GF(2^16), where a share's symbol bytes
-    come in pairs."""
+    same card tensors; k >= 256 runs GF(2^16), where a share's symbol bytes
+    come in pairs and the kernel reads them in share order."""
     rng = np.random.default_rng(k)
     codec = RSCodec(k, construction)
     m = codec.field.m
-    G_words = codec_tensors(codec.generator_bits(), m, cuda)["G_words"]
+    G_bits = codec_tensors(codec.generator_bits(), m, cuda)["G_bits"]
     top = _bytes(rng, k, 2 * k, 512).to(cuda)
-    before = _build.LAUNCHES["rs_xor_leaf"]
-    bottom, hashes = rs_xor.extend_leaf_digests(top, G_words, m)
-    assert _build.LAUNCHES["rs_xor_leaf"] == before + 1
-    want_bottom, want_hashes = rs_xor.extend_leaf_digests_plain(top, G_words, m)
+    before = _build.LAUNCHES["rs_dense_leaf"]
+    bottom, hashes = rs_xor.extend_leaf_digests(top, G_bits, m)
+    assert _build.LAUNCHES["rs_dense_leaf"] == before + 1
+    want_bottom, want_hashes = rs_xor.extend_leaf_digests_plain(top, G_bits, m)
     assert torch.equal(bottom, want_bottom), (k, construction)
     assert torch.equal(hashes, want_hashes), (k, construction)
     for i, j in ((0, 0), (k - 1, 2 * k - 1)):
@@ -126,10 +126,27 @@ def test_epilogue_kernel_equals_plain(cuda, k, construction):
         assert hashes[i, j].cpu().numpy().tobytes() == hashlib.sha256(msg).digest()
 
 
+@pytest.mark.parametrize("m", [8, 16])
+@pytest.mark.parametrize("n,P,n2", [(3, 5, 7), (17, 9, 3), (40, 24, 5), (33, 70, 2)])
+def test_epilogue_kernel_random_generator(cuda, n, P, n2, m):
+    """Random 0/1 generators with P != n: bands that end inside a share
+    tile, contraction stages past n, and batch-column counts of any size."""
+    rng = np.random.default_rng(n * 100 + P + m)
+    G = torch.from_numpy(rng.integers(0, 2, (P * m, n * m), dtype=np.int8)).to(cuda)
+    top = _bytes(rng, n, n2, 512).to(cuda)
+    before = _build.LAUNCHES["rs_dense_leaf"]
+    bottom, hashes = rs_xor.extend_leaf_digests(top, G, m)
+    assert _build.LAUNCHES["rs_dense_leaf"] == before + 1
+    want_bottom, want_hashes = rs_xor.extend_leaf_digests_plain(top, G, m)
+    assert torch.equal(bottom, want_bottom)
+    assert torch.equal(hashes, want_hashes)
+
+
 @pytest.mark.parametrize("xor", [False, True])
 def test_epi_pipeline_on_card_equals_cpu(cuda, xor, monkeypatch):
     """CELESTIA_PIPE_FUSED=epi on the card: one epilogue launch per extend,
-    the same roots and EDS as the CPU's fused pipeline."""
+    one RS launch (the row phase on the seated core), the same roots and
+    EDS as the CPU's fused pipeline."""
     from celestia_app_tpu_torch.da import extend_shares
 
     monkeypatch.setenv("CELESTIA_RS_XOR", "on" if xor else "off")
@@ -139,9 +156,11 @@ def test_epi_pipeline_on_card_equals_cpu(cuda, xor, monkeypatch):
     monkeypatch.setenv("CELESTIA_PIPE_FUSED", "epi")
     _build.reset_launches()
     on_card = extend_shares(shares, "vandermonde")
-    assert _build.LAUNCHES["rs_xor_leaf"] == 1
+    assert _build.LAUNCHES["rs_dense_leaf"] == 1
     assert _build.LAUNCHES["sha256_leaf"] == 1
+    # The row phase only: the column phase is the epilogue kernel's.
     assert _build.LAUNCHES["rs_xor" if xor else "rs_dense"] == 1
+    assert _build.LAUNCHES["rs_dense" if xor else "rs_xor"] == 0
     assert on_card.data_root() == on_cpu.data_root()
     assert np.array_equal(on_card.squared(), on_cpu.squared())
 

@@ -47,8 +47,8 @@ def test_extend_leaf_digests_equals_jax_bottom_leaf_fn(k, construction, monkeypa
 
     codec = RSCodec(k, construction)
     m = codec.field.m
-    G_words = codec_tensors(codec.generator_bits(), m, "cpu")["G_words"]
-    bottom, hashes = rs_xor.extend_leaf_digests(torch.from_numpy(top), G_words, m)
+    G_bits = codec_tensors(codec.generator_bits(), m, "cpu")["G_bits"]
+    bottom, hashes = rs_xor.extend_leaf_digests(torch.from_numpy(top), G_bits, m)
     assert np.array_equal(bottom.numpy(), want_bottom)
     assert np.array_equal(hashes.numpy(), want_hashes)
     # The port's own CPU branch of bottom_leaf_fn, on either RS seat.
@@ -124,9 +124,73 @@ def test_bottom_leaf_fn_needs_the_seated_encode():
 
 def test_epilogue_input_checks():
     codec = RSCodec(2, "vandermonde")
-    G_words = codec_tensors(codec.generator_bits(), 8, "cpu")["G_words"]
+    G_bits = codec_tensors(codec.generator_bits(), 8, "cpu")["G_bits"]
     with pytest.raises(ValueError):
-        rs_xor.extend_leaf_digests(torch.zeros((2, 4, 100), dtype=torch.uint8), G_words, 8)
+        rs_xor.extend_leaf_digests(torch.zeros((2, 4, 100), dtype=torch.uint8), G_bits, 8)
     with pytest.raises(ValueError):
         rs_xor.extend_leaf_digests(torch.zeros((2, 4, SHARE_SIZE), dtype=torch.uint8),
-                                   G_words, 32)
+                                   G_bits, 32)
+    with pytest.raises(ValueError):  # 3 rows of top against a generator for 2
+        rs_xor.extend_leaf_digests(torch.zeros((3, 4, SHARE_SIZE), dtype=torch.uint8),
+                                   G_bits, 8)
+    with pytest.raises(ValueError):  # the packed XOR words are not the epilogue's operand
+        rs_xor.extend_leaf_digests(torch.zeros((2, 4, SHARE_SIZE), dtype=torch.uint8),
+                                   codec_tensors(codec.generator_bits(), 8, "cpu")["G_words"], 8)
+
+
+def _gf2_parity_shares(G: np.ndarray, top: np.ndarray, m: int) -> np.ndarray:
+    """numpy reference of the column-phase product: bit t of byte b of
+    symbol s of share j is contraction index j*m + 8b + t (LSB first)."""
+    n, n2, S = top.shape
+    bps = m // 8
+    sym = top.reshape(n, n2, S // bps, bps)
+    bits = np.unpackbits(sym[..., None], axis=-1, bitorder="little")  # (n, n2, nsym, bps, 8)
+    x = bits.transpose(0, 3, 4, 1, 2).reshape(n * m, n2 * (S // bps)).astype(np.int64)
+    par = (G.astype(np.int64) @ x) & 1  # (P*m, n2*nsym)
+    P = G.shape[0] // m
+    out = par.reshape(P, bps, 8, n2, S // bps).transpose(0, 3, 4, 1, 2)
+    return np.packbits(out.astype(np.uint8), axis=-1, bitorder="little").reshape(P, n2, S)
+
+
+@pytest.mark.parametrize("m", [8, 16])
+@pytest.mark.parametrize("n,P,n2", [(3, 5, 7), (17, 9, 3), (40, 24, 5), (1, 1, 1)])
+def test_plain_epilogue_on_random_generators(n, P, n2, m):
+    """Non-square random 0/1 generators (P != n): the plain version equals a
+    numpy GF(2) product and hashlib leaf digests under the parity namespace."""
+    rng = np.random.default_rng(n * 1000 + P * 10 + m)
+    G = rng.integers(0, 2, (P * m, n * m), dtype=np.int8)
+    top = rng.integers(0, 256, (n, n2, SHARE_SIZE), dtype=np.uint8)
+    bottom, hashes = rs_xor.extend_leaf_digests(torch.from_numpy(top), torch.from_numpy(G), m)
+    want = _gf2_parity_shares(G, top, m)
+    assert np.array_equal(bottom.numpy(), want)
+    for p in range(P):
+        for b in range(n2):
+            msg = b"\x00" + b"\xff" * 29 + want[p, b].tobytes()
+            assert hashes[p, b].numpy().tobytes() == hashlib.sha256(msg).digest()
+
+
+@pytest.mark.parametrize("m", [8, 16])
+def test_leaf_operands_share_order(m):
+    """The kernel's data operand is the half square's rows as they lie: at
+    m=8 they are the byte planes, at m=16 bytes 2c and 2c + 1 of row j are
+    byte rows 2j and 2j + 1 of plane column c (the order the kernel's
+    producer de-interleaves).  The generator comes back with a row stride
+    that TMA takes, equal in value."""
+    from celestia_app_tpu_torch.kernels.rs_dense import TMA_ALIGN
+
+    rng = np.random.default_rng(m)
+    if m == 8:  # k=1: 8-byte generator rows, padded to 16
+        k = 1
+        G = torch.from_numpy(RSCodec(k, "vandermonde").generator_bits().astype(np.int8))
+    else:
+        k = 2
+        G = torch.from_numpy(rng.integers(0, 2, (3 * m, k * m), dtype=np.int8))
+    top = torch.from_numpy(rng.integers(0, 256, (k, 2 * k, SHARE_SIZE), dtype=np.uint8))
+    G_tma, rows = rs_xor.leaf_operands(top, G, m)
+    assert torch.equal(G_tma, G) and G_tma.stride(0) % TMA_ALIGN == 0
+    assert rows.shape == (k, 2 * k * SHARE_SIZE) and rows.stride(0) % TMA_ALIGN == 0
+    assert rows.data_ptr() == top.data_ptr()  # no copy of a contiguous half square
+    bps = m // 8
+    planes = top.reshape(k, 2 * k, SHARE_SIZE // bps, bps).movedim(3, 1).reshape(k * bps, -1)
+    de_interleaved = rows.reshape(k, -1, bps).permute(0, 2, 1).reshape(k * bps, -1)
+    assert torch.equal(de_interleaved, planes)
