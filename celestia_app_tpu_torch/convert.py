@@ -53,10 +53,17 @@ def codec_tensors(
     if G.size and G.max() > 1:
         raise ValueError("generator_bits must hold only 0 and 1")
     words = pack_generator_words(G.astype(np.uint8))
-    Pm, nm = G.shape
-    padded = np.zeros((Pm, -(-nm // 16) * 16), dtype=np.int8)
-    padded[:, :nm] = G
     return {
-        "G_bits": torch.from_numpy(padded).to(device)[:, :nm],
+        "G_bits": bits_tensor(G, device),
         "G_words": torch.from_numpy(words.view(np.int32)).to(device),
     }
+
+
+def bits_tensor(bits: np.ndarray, device: str | torch.device) -> torch.Tensor:
+    """A (rows, cols) 0/1 matrix as int8 on `device`, a view of a buffer whose
+    rows are cols rounded up to 16 bytes (zero-filled): the row stride the
+    dense kernel's TMA loads need, paid once when the matrix is cached."""
+    rows, cols = bits.shape
+    padded = np.zeros((rows, -(-cols // 16) * 16), dtype=np.int8)
+    padded[:, :cols] = bits
+    return torch.from_numpy(padded).to(device)[:, :cols]

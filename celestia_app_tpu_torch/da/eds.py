@@ -3,7 +3,10 @@ NMT roots (reference pkg/da/data_availability_header.go:65-75), computed on
 the card by the lowering that kernels/fused.pipeline_mode selects.
 
 Accessors mirror the rsmt2d surface of celestia_app_tpu/da/eds.py; they
-return host copies.
+return host copies.  The per-line trees (`row_tree`, `col_tree`) serve the
+proof constructors of proof/share_proof.py: indexing into the device forest
+when the serve cache retains the square, else host trees built from the
+shares.
 """
 
 from __future__ import annotations
@@ -13,11 +16,17 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from celestia_app_tpu_torch.constants import MAX_CODEC_SQUARE_SIZE, SHARE_SIZE
+from celestia_app_tpu_torch.constants import (
+    MAX_CODEC_SQUARE_SIZE,
+    NAMESPACE_SIZE,
+    PARITY_NAMESPACE_BYTES,
+    SHARE_SIZE,
+)
 from celestia_app_tpu_torch.device import resolve_device
 from celestia_app_tpu_torch.gf.rs import active_construction
 from celestia_app_tpu_torch.kernels import fused
 from celestia_app_tpu_torch.kernels.rs import extend_square_fn, use_xor
+from celestia_app_tpu_torch.nmt.tree import NamespacedMerkleTree
 
 MODES = ("fused", "fused_epi", "staged", "host")
 
@@ -87,6 +96,56 @@ class ExtendedDataSquare:
         self._col_roots = col_roots
         self._data_root = data_root
         self.k = k  # ODS width
+        # Proof-serving state: one host tree per touched line (memoized on
+        # the handle) and, once the serve cache retains this square, its
+        # device forest (serve/cache.CachedForest), whose levels replace
+        # host hashing.
+        self._tree_memo: dict = {}
+        self._forest = None
+        self._ods_ns: np.ndarray | None = None
+
+    def attach_forest(self, forest) -> None:
+        """Hook the retained device forest onto this handle, so every proof
+        path reads its levels instead of hashing rows again."""
+        self._forest = forest
+        self._tree_memo.clear()
+
+    def leaf_namespace(self, row: int, col: int) -> bytes:
+        """The namespace the (row, col) leaf carries in its trees: the
+        share's own inside Q0, the parity namespace in every other quadrant
+        (pkg/wrapper/nmt_wrapper.go:93-114)."""
+        if row < self.k and col < self.k:
+            return self._eds[row, col, :NAMESPACE_SIZE].cpu().numpy().tobytes()
+        return PARITY_NAMESPACE_BYTES
+
+    def _axis_tree(self, axis: str, index: int, *, host: bool = False):
+        """Memoized NMT of one row ("row") or column ("col"): a view of the
+        device forest when one is attached, else a host NamespacedMerkleTree
+        over the line's shares under the quadrant namespace rule.
+        `host=True` forces the host build, so the sampler's host lowering
+        does not depend on the forest it is held against."""
+        key = (axis, index, host)
+        cached = self._tree_memo.get(key)
+        if cached is not None:
+            return cached
+        if self._forest is not None and not host:
+            tree = self._forest.line_tree(axis, index)
+        else:
+            line = (self._eds[index] if axis == "row" else self._eds[:, index]).cpu().numpy()
+            tree = NamespacedMerkleTree()
+            for j in range(2 * self.k):
+                r, c = (index, j) if axis == "row" else (j, index)
+                ns = (line[j, :NAMESPACE_SIZE].tobytes() if r < self.k and c < self.k
+                      else PARITY_NAMESPACE_BYTES)
+                tree.push(ns + line[j].tobytes())
+        self._tree_memo[key] = tree
+        return tree
+
+    def row_tree(self, row: int, *, host: bool = False):
+        return self._axis_tree("row", row, host=host)
+
+    def col_tree(self, col: int, *, host: bool = False):
+        return self._axis_tree("col", col, host=host)
 
     @property
     def width(self) -> int:
@@ -126,6 +185,14 @@ class ExtendedDataSquare:
     def flattened_ods(self) -> list[bytes]:
         q0 = self._eds[: self.k, : self.k].cpu().numpy()
         return [q0[i, j].tobytes() for i in range(self.k) for j in range(self.k)]
+
+    def ods_namespaces(self) -> np.ndarray:
+        """(k*k, 29) uint8 namespaces of the ODS shares, row major: the
+        input of proof.share_proof.ods_namespace_range, read once."""
+        if self._ods_ns is None:
+            self._ods_ns = self._eds[: self.k, : self.k, :NAMESPACE_SIZE].cpu().numpy().reshape(
+                self.k * self.k, NAMESPACE_SIZE)
+        return self._ods_ns
 
     @staticmethod
     def _roots_list(roots: torch.Tensor) -> list[bytes]:

@@ -17,6 +17,7 @@ anything else -> "fused".  Every mode gives the same bytes.
 from __future__ import annotations
 
 import os
+from functools import lru_cache
 
 import torch
 
@@ -25,8 +26,10 @@ from celestia_app_tpu_torch.kernels.merkle import merkle_root_pow2
 from celestia_app_tpu_torch.kernels.nmt import (
     leaf_digests,
     parity_namespaces,
+    tree_levels_from_digests,
     tree_roots_from_digests,
 )
+from celestia_app_tpu_torch.device import resolve_device
 from celestia_app_tpu_torch.kernels.rs import encode_fn
 from celestia_app_tpu_torch.kernels.rs_xor import bottom_leaf_fn
 
@@ -118,3 +121,68 @@ def extend_and_dah_fn(k: int, construction: str | None = None,
         return (eds, *roots)
 
     return run
+
+
+# --- forest retention (the serve plane's read side) -------------------------
+#
+# The pipeline above keeps only the 4k roots of the NMT levels it computes;
+# the proof-serving plane (serve/) needs every node of every row and column
+# tree, so that a batch of samples is answered by gathers instead of
+# hashing.  The forest is rebuilt from the retained EDS once per retained
+# height, beside the block path rather than inside it.
+
+
+def forest_level_layout(k: int) -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """(widths, offsets) of the flattened forest of 2k trees of 2k leaves.
+
+    Level h holds 2k trees x (2k >> h) nodes; the flat (N, 90) array
+    concatenates the levels leaf first, each level row-major by tree, so
+    node (tree t, level h, index i) is flat[offsets[h] + t*widths[h] + i]:
+    the indexing contract of serve/cache.py and serve/sampler.py."""
+    n = 2 * k
+    widths = []
+    w = n
+    while w >= 1:
+        widths.append(w)
+        w //= 2
+    offsets, off = [], 0
+    for w in widths:
+        offsets.append(off)
+        off += n * w
+    return tuple(widths), tuple(offsets)
+
+
+def forest_fn(k: int):
+    """f(eds) -> (row_flat, col_flat): both axes' complete forests of
+    90-byte min || max || hash digests (the nmt/hasher.py wire form),
+    flattened per forest_level_layout.  One leaf-hash launch for the whole
+    square (each digest serves its row and its column tree), then one node
+    launch per level and axis."""
+
+    def flatten(levels) -> torch.Tensor:
+        return torch.cat([torch.cat([m, x, h], dim=2).reshape(-1, 90) for m, x, h in levels])
+
+    def run(eds: torch.Tensor):
+        mins, maxs, hashes = leaf_digests(leaf_namespaces(eds, k), eds)
+        row_levels = tree_levels_from_digests(mins, maxs, hashes)
+        col_levels = tree_levels_from_digests(
+            mins.transpose(0, 1).contiguous(),
+            maxs.transpose(0, 1).contiguous(),
+            hashes.transpose(0, 1).contiguous(),
+        )
+        return flatten(row_levels), flatten(col_levels)
+
+    return run
+
+
+@lru_cache(maxsize=None)
+def forest(k: int, device=None):
+    """The forest builder of square size k on `device` (default CUDA;
+    raises without a card): f(eds) moves `eds` there if it lies elsewhere."""
+    dev = resolve_device(device)
+    run = forest_fn(k)
+
+    def build(eds: torch.Tensor):
+        return run(eds.to(dev))
+
+    return build

@@ -102,3 +102,19 @@ def extend_square_fn(k: int, construction: str | None = None, device=None):
         return torch.cat([top, encode(top, 0)], dim=0)
 
     return extend
+
+
+def decode_axis_fn(k: int, construction: str | None = None):
+    """Erasure decode along an axis as a constant product.
+
+    Returns f(known, R_bits): known (R, k, S) holds each line's k known
+    shares (already gathered), R_bits is a bit-expanded recover matrix
+    (rows*m, k*m) from RSCodec.recover_matrix on the same device, carried
+    there by convert.bits_tensor; the result is (R, rows, S).  With the
+    full (2k*m, k*m) matrix it is the whole codeword."""
+    m = codec_for_width(k, construction).field.m
+
+    def decode(known: torch.Tensor, R_bits: torch.Tensor) -> torch.Tensor:
+        return encode_axis(known, R_bits, m, contract_axis=1)
+
+    return decode

@@ -28,7 +28,21 @@ Phases, in order; any failure raises and the script exits non-zero:
              launch counters show that each path ran through its kernels;
   5. block   extend_block on a k=128 block of txs and BlobTxs: one data root
              under the fused, staged and fused_epi lowerings, equal to
-             extend_shares of the constructed square; an empty block is None.
+             extend_shares of the constructed square; an empty block is None;
+  6. repair  da.repair at k=512 (GF(2^16)) on the dense and the fused_epi
+             paths: Q3 withheld (no decode, one re-extension) and Q0 withheld
+             (one decode sweep through rs_dense with the recover matrix as
+             the generator, then the re-extension), a random erasure at the
+             25 % threshold at k=64 under both $CELESTIA_REPAIR_SWEEP values,
+             and a corrupted survivor, which must raise RootMismatch; the
+             repaired EDS equals the original byte for byte, the DAH matches,
+             and the RS launch counts are those of the path;
+  7. das     the read side at k=512: the forest of one square (checked level
+             by level against kernels/nmt.tree_levels_from_digests), 4096
+             random samples on each axis through ProofSampler.sample_batch
+             (32 held byte-equal to the host lowering), and verify_proofs on
+             all of them and on a queue with 64 tampered proofs, exactly
+             those rejected.
 Then one JSON line per kernel table, the card's name and power limit, and
 last the result line {"ok": true, "device": {...}}.  Needs no network and no
 argument; exits non-zero without a CUDA device.
@@ -682,6 +696,259 @@ def phase_block(card: str) -> None:
             f"(median of {block_ms[fused]})")
 
 
+def timed_calls(torch, fn, reps: int = 3) -> list[float]:
+    """ms of `reps` calls of `fn`, each ended by a synchronize: host and
+    device time together."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def check_launches(label: str, got: dict, want: dict) -> None:
+    """Fail unless each kernel of `want` was launched that many times
+    (None: at least once)."""
+    for name, n in want.items():
+        if (got[name] == 0) if n is None else (got[name] != n):
+            raise AssertionError(f"{label}: {got[name]} {name} launches, want "
+                                 f"{'at least 1' if n is None else n} ({got})")
+
+
+def read_side_square(k: int):
+    """The k=512 square of the read-side phases, extended on the dense path."""
+    from celestia_app_tpu_torch.da import extend_shares
+
+    ods = random_square(k, seed=k + 1)
+    with environment({"CELESTIA_PIPE_FUSED": "on", "CELESTIA_RS_XOR": "off"}):
+        return extend_shares([row.tobytes() for row in ods.reshape(k * k, 512)], "vandermonde")
+
+
+def phase_repair(torch, eds, card: str) -> None:
+    """da.repair on the card: k=512 quadrant erasures on the dense and epi
+    paths, a k=64 random erasure at the threshold under both sweep modes,
+    and a corrupted survivor."""
+    from celestia_app_tpu_torch.da import (
+        DataAvailabilityHeader, RootMismatch, extend_shares, repair,
+    )
+    from celestia_app_tpu_torch.kernels import _build
+
+    k = eds.k
+    n = 2 * k
+    full = eds.squared()
+    dah = DataAvailabilityHeader.from_eds(eds)
+    base = {"CELESTIA_RS_CONSTRUCTION": "vandermonde", "CELESTIA_RS_XOR": "off"}
+    # Per path and withheld quadrant: (rs_dense, rs_dense_leaf) launches of one
+    # repair.  Q0: one decode sweep of k rows, then the re-extension.
+    cases = (("dense", "on", "Q3", 2, 0), ("dense", "on", "Q0", 3, 0),
+             ("epi", "epi", "Q3", 1, 1), ("epi", "epi", "Q0", 2, 1))
+    for path, fused, quadrant, n_dense, n_leaf in cases:
+        present = np.ones((n, n), dtype=bool)
+        q = slice(0, k) if quadrant == "Q0" else slice(k, n)
+        present[q, q] = False
+        damaged = full.copy()
+        damaged[q, q] = 0
+        label = f"repair k={k} {quadrant} withheld, {path} path"
+        with environment({**base, "CELESTIA_PIPE_FUSED": fused}):
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            out = repair(damaged, present, dah)
+            torch.cuda.synchronize()
+            first = (time.perf_counter() - t0) * 1e3
+            counts = dict(_build.LAUNCHES)
+            check_launches(label, counts, {"rs_dense": n_dense, "rs_dense_leaf": n_leaf,
+                                           "rs_xor": 0, "sha256_leaf": 1, "sha256": None})
+            if not torch.equal(out._eds, eds._eds):
+                raise AssertionError(f"{label}: repaired EDS != original")
+            if not DataAvailabilityHeader.from_eds(out).equals(dah):
+                raise AssertionError(f"{label}: DAH mismatch")
+            times = timed_calls(torch, lambda: repair(damaged, present, dah))
+            log(f"[{card}] {label}: EDS and DAH equal; first call {first:.3f} ms (the host "
+                f"solve of a new pattern included), cached {float(np.median(times)):.3f} ms (median of "
+                f"{[round(t, 3) for t in times]}); launches {counts}")
+            device_breakdown(torch, lambda: repair(damaged, present, dah), card, label)
+        del damaged, out
+
+    # A corrupted survivor: the recomputed codeword cannot reproduce it.
+    present = np.ones((n, n), dtype=bool)
+    present[k:, k:] = False
+    damaged = full.copy()
+    damaged[k:, k:] = 0
+    damaged[0, 0, 100] ^= 0xFF
+    with environment({**base, "CELESTIA_PIPE_FUSED": "on"}):
+        try:
+            repair(damaged, present, dah)
+        except RootMismatch as e:
+            log(f"[{card}] repair k={k} with a corrupted survivor: RootMismatch ({e})")
+        else:
+            raise AssertionError("a corrupted survivor was not rejected")
+    del damaged, full
+
+    # A random erasure at the 25 % threshold at k=64: k random rows keep k
+    # random shares each (k*k of the 4k^2), so each kept row is a pattern
+    # group of its own; the columns decode from those rows.  Under both
+    # sweep algorithms.
+    k = 64
+    n = 2 * k
+    ods = random_square(k, seed=64)
+    with environment({**base, "CELESTIA_PIPE_FUSED": "on"}):
+        small = extend_shares([row.tobytes() for row in ods.reshape(k * k, 512)], "vandermonde")
+        small_dah = DataAvailabilityHeader.from_eds(small)
+        rng = np.random.default_rng(64)
+        present = np.zeros((n, n), dtype=bool)
+        for r in rng.choice(n, k, replace=False):
+            present[r, rng.choice(n, k, replace=False)] = True
+        damaged = np.where(present[..., None], small.squared(), 0).astype(np.uint8)
+        outs = {}
+        for sweep in ("batched", "grouped"):
+            with environment({"CELESTIA_REPAIR_SWEEP": sweep}):
+                _build.reset_launches()
+                t0 = time.perf_counter()
+                outs[sweep] = repair(damaged, present, small_dah)
+                torch.cuda.synchronize()
+                first = (time.perf_counter() - t0) * 1e3
+                counts = dict(_build.LAUNCHES)
+                check_launches(f"repair k={k} random {sweep}", counts,
+                               {"rs_dense": None, "sha256_leaf": 1, "sha256": None})
+                times = timed_calls(torch, lambda: repair(damaged, present, small_dah))
+            if not torch.equal(outs[sweep]._eds, small._eds):
+                raise AssertionError(f"repair k={k} random {sweep}: EDS != original")
+            log(f"[{card}] repair k={k} random erasure at the threshold "
+                f"({int((~present).sum())} of {n * n} shares missing), "
+                f"CELESTIA_REPAIR_SWEEP={sweep}: EDS and DAH equal; first call {first:.3f} ms, "
+                f"cached {float(np.median(times)):.3f} ms (median of "
+                f"{[round(t, 3) for t in times]}); {counts['rs_dense']} rs_dense launches")
+        if not torch.equal(outs["batched"]._eds, outs["grouped"]._eds):
+            raise AssertionError(f"repair k={k}: batched != grouped")
+
+
+def _tampered(proof, what: str, rng):
+    """`proof` with one byte changed in its share, its first sibling or its
+    row root."""
+    import dataclasses
+
+    def flip(b: bytes, lo: int) -> bytes:
+        raw = bytearray(b)
+        raw[int(rng.integers(lo, len(raw)))] ^= 0xFF
+        return bytes(raw)
+
+    if what == "share":
+        return dataclasses.replace(proof, data=(flip(proof.data[0], 0),))
+    if what == "sibling":
+        nmt = proof.share_proofs[0]
+        nodes = (flip(nmt.nodes[0], 58),) + nmt.nodes[1:]  # the digest bytes
+        return dataclasses.replace(proof, share_proofs=(dataclasses.replace(nmt, nodes=nodes),))
+    rp = proof.row_proof
+    return dataclasses.replace(
+        proof, row_proof=dataclasses.replace(rp, row_roots=(flip(rp.row_roots[0], 0),)))
+
+
+def phase_das(torch, eds, card: str) -> None:
+    """The read side at k=512: forest, samples, verification."""
+    from celestia_app_tpu_torch.kernels import _build
+    from celestia_app_tpu_torch.kernels.fused import forest_level_layout, leaf_namespaces
+    from celestia_app_tpu_torch.kernels.nmt import leaf_digests, tree_levels_from_digests
+    from celestia_app_tpu_torch.serve import ForestCache, ProofSampler
+    from celestia_app_tpu_torch.serve.verify import verify_proofs
+
+    k = eds.k
+    n = 2 * k
+    cache = ForestCache(heights=1, spill=1)
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    entry = cache.put(1, eds)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    forest_counts = dict(_build.LAUNCHES)
+    levels = n.bit_length() - 1
+    check_launches("forest build", forest_counts,
+                   {"sha256_leaf": 1, "sha256": 2 * levels, "rs_dense": 0})
+    forest_bytes = entry.row_flat.numel() + entry.col_flat.numel()
+
+    # Both flat forests, level by level, against tree_levels_from_digests.
+    widths, offsets = forest_level_layout(k)
+    mins, maxs, hashes = leaf_digests(leaf_namespaces(eds._eds, k), eds._eds)
+    axes = (("row", entry.row_flat, (mins, maxs, hashes), eds._row_roots),
+            ("col", entry.col_flat, [t.transpose(0, 1).contiguous() for t in (mins, maxs, hashes)],
+             eds._col_roots))
+    for axis, flat, digests, roots in axes:
+        for h, (m, x, hh) in enumerate(tree_levels_from_digests(*digests)):
+            level = flat[offsets[h]:offsets[h] + n * widths[h]].view(n, widths[h], 90)
+            if not torch.equal(level, torch.cat([m, x, hh], dim=2)):
+                raise AssertionError(f"{axis} forest level {h} != tree_levels_from_digests")
+        if not torch.equal(flat[offsets[-1]:], roots):
+            raise AssertionError(f"{axis} forest roots != the square's roots")
+    del mins, maxs, hashes, axes
+    log(f"[{card}] forest k={k}: build {build_ms:.3f} ms (one put, synchronized), "
+        f"{forest_bytes / 1e6:.1f} MB for both axes; every level of both forests == "
+        f"tree_levels_from_digests; launches {forest_counts}")
+    times = timed_calls(torch, lambda: ForestCache(heights=1, spill=1).put(2, eds))
+    log(f"[{card}] forest k={k}: later puts {[round(t, 3) for t in times]} ms")
+    device_breakdown(torch, lambda: ForestCache(heights=1, spill=1).put(3, eds), card,
+                     f"forest put k={k}")
+
+    sampler = ProofSampler()
+    rng = np.random.default_rng(4096)
+    proofs, coords_by_axis = {}, {}
+    for axis in ("row", "col"):
+        coords = [tuple(int(v) for v in c) for c in rng.integers(0, n, (4096, 2))]
+        coords_by_axis[axis] = coords
+        times = []
+        for _ in range(2):  # the first fills the index-plan cache
+            t0 = time.perf_counter()
+            proofs[axis] = sampler.sample_batch(entry, coords, axis=axis)
+            times.append(((time.perf_counter() - t0) * 1e3, dict(sampler.last_batch_s)))
+        for i, (ms, parts) in enumerate(times):
+            log(f"[{card}] sample_batch k={k} axis={axis} 4096 samples, call {i + 1}: "
+                f"{ms:.3f} ms (gather {parts['gather'] * 1e3:.3f} ms, assemble "
+                f"{parts['assemble'] * 1e3:.3f} ms)")
+        for j in rng.choice(4096, 16, replace=False):
+            row, col = coords[j]
+            if proofs[axis][j] != sampler.host_proof(entry, row, col, axis):
+                raise AssertionError(f"sample ({row}, {col}) axis={axis} != host_proof")
+    queue = proofs["row"] + proofs["col"]
+    log(f"[{card}] 32 of the {len(queue)} samples == host_proof byte for byte")
+    device_breakdown(torch, lambda: sampler.sample_batch(entry, coords_by_axis["row"]), card,
+                     f"sample_batch k={k} 4096 samples")
+
+    for axis in ("row", "col"):
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        verdicts = verify_proofs(proofs[axis], entry.data_root)
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(_build.LAUNCHES)
+        check_launches(f"verify_proofs axis={axis}", counts,
+                       {"sha256_leaf": 1, "sha256": levels + 1 + levels + 1})
+        if not all(verdicts):
+            raise AssertionError(f"verify_proofs rejected {verdicts.count(False)} honest "
+                                 f"axis={axis} samples")
+        log(f"[{card}] verify_proofs 4096 axis={axis} samples: {ms:.3f} ms, all true; "
+            f"launches {counts}")
+    device_breakdown(torch, lambda: verify_proofs(proofs["row"], entry.data_root), card,
+                     "verify_proofs 4096 samples")
+    roots = [entry.data_root] * len(queue)
+    bad = rng.choice(len(queue), 64, replace=False)
+    for j, what in zip(bad, ("share", "sibling", "row_root", "data_root") * 16):
+        if what == "data_root":
+            roots[j] = bytes(32)
+        else:
+            queue[j] = _tampered(queue[j], what, rng)
+    t0 = time.perf_counter()
+    verdicts = verify_proofs(queue, roots)
+    ms = (time.perf_counter() - t0) * 1e3
+    rejected = sorted(i for i, ok in enumerate(verdicts) if not ok)
+    if rejected != sorted(int(j) for j in bad):
+        raise AssertionError(f"verify_proofs rejected {rejected[:8]}..., tampered "
+                             f"{sorted(int(j) for j in bad)[:8]}...")
+    log(f"[{card}] verify_proofs {len(queue)} samples with 64 tampered (16 shares, 16 "
+        f"siblings, 16 row roots, 16 data roots): exactly those 64 false; {ms:.3f} ms")
+
+
 def main() -> int:
     import torch
 
@@ -717,6 +984,9 @@ def main() -> int:
     counts = phase_full(torch, 512, "vandermonde", card, seed=512)
     phase_full(torch, 128, "leopard", card, seed=128)
     phase_block(card)
+    eds = read_side_square(512)
+    phase_repair(torch, eds, card)
+    phase_das(torch, eds, card)
 
     # Each kernel's launches on the k=512 path that runs it: the column
     # phase's kernel names the path, the hashing kernels run on every path.

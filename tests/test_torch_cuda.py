@@ -174,3 +174,78 @@ def test_extend_block_on_card_equals_cpu(cuda, monkeypatch):
         monkeypatch.setenv("CELESTIA_PIPE_FUSED", mode)
         assert extend_block(txs).data_root() == on_cpu.data_root()
     assert extend_block([]) is None
+
+
+def _read_side_square(k: int, seed: int):
+    """A namespace-ordered random square extended on the card, and its DAH."""
+    from celestia_app_tpu_torch.da import DataAvailabilityHeader, extend_shares
+
+    rng = np.random.default_rng(seed)
+    ods = rng.integers(0, 256, (k * k, 512), dtype=np.uint8)
+    ods[:, :29] = 0
+    ods[:, 28] = np.sort(rng.integers(0, 256, k * k))
+    eds = extend_shares([s.tobytes() for s in ods], "vandermonde")
+    return eds, DataAvailabilityHeader.from_eds(eds)
+
+
+@pytest.mark.parametrize("fused", ["on", "epi"])
+@pytest.mark.parametrize("k,erasure", [(128, "Q0"), (128, "random"), (512, "Q0")])
+def test_repair_on_card_equals_cpu(cuda, k, erasure, fused, monkeypatch):
+    """da.repair on the card gives the original square, and at k=128 the
+    CPU's roots; a Q0 repair makes one decode launch before the
+    re-extension."""
+    from celestia_app_tpu_torch.da import repair
+
+    monkeypatch.setenv("CELESTIA_RS_CONSTRUCTION", "vandermonde")
+    monkeypatch.setenv("CELESTIA_PIPE_FUSED", fused)
+    eds, dah = _read_side_square(k, seed=k)
+    full = eds.squared()
+    n = 2 * k
+    rng = np.random.default_rng(1)
+    present = np.zeros((n, n), dtype=bool)
+    if erasure == "Q0":
+        present[:] = True
+        present[:k, :k] = False
+    else:
+        for r in rng.choice(n, k, replace=False):
+            present[r, rng.choice(n, k, replace=False)] = True
+    damaged = np.where(present[..., None], full, 0).astype(np.uint8)
+    _build.reset_launches()
+    on_card = repair(damaged, present, dah)
+    if erasure == "Q0":
+        assert _build.LAUNCHES["rs_dense"] == (3 if fused == "on" else 2)
+        assert _build.LAUNCHES["rs_dense_leaf"] == (0 if fused == "on" else 1)
+    assert np.array_equal(on_card.squared(), full)
+    if k <= 128:
+        on_cpu = repair(damaged, present, dah, device="cpu")
+        assert on_card.row_roots() == on_cpu.row_roots()
+        assert on_card.col_roots() == on_cpu.col_roots()
+
+
+@pytest.mark.parametrize("k", [128, 512])
+def test_forest_sample_verify_on_card_equals_cpu(cuda, k):
+    """The forest, sampled proofs and verdicts on the card against the CPU's
+    plain path (its forest at k=128) and the host lowering."""
+    from celestia_app_tpu_torch.kernels.fused import forest_fn
+    from celestia_app_tpu_torch.serve import ForestCache, ProofSampler
+    from celestia_app_tpu_torch.serve.verify import verify_proofs
+
+    eds, _ = _read_side_square(k, seed=k + 1)
+    _build.reset_launches()
+    entry = ForestCache(heights=1, spill=1).put(1, eds)
+    assert _build.LAUNCHES["sha256_leaf"] == 1
+    if k == 128:
+        row_flat, col_flat = forest_fn(k)(eds._eds.cpu())
+        assert torch.equal(entry.row_flat.cpu(), row_flat)
+        assert torch.equal(entry.col_flat.cpu(), col_flat)
+    sampler = ProofSampler()
+    rng = np.random.default_rng(k)
+    coords = [tuple(int(v) for v in c) for c in rng.integers(0, 2 * k, (64, 2))]
+    queue = sampler.sample_batch(entry, coords) + sampler.sample_batch(entry, coords, "col")
+    for (row, col), p in zip(coords[:4], queue[:4]):
+        assert p == sampler.host_proof(entry, row, col)
+    roots = [entry.data_root] * len(queue)
+    roots[3] = bytes(32)
+    want = [p.verify(r) for p, r in zip(queue, roots)]
+    assert want.count(False) == 1
+    assert verify_proofs(queue, roots) == want == verify_proofs(queue, roots, device="cpu")

@@ -1,0 +1,59 @@
+"""The port imports nothing of JAX and nothing of the JAX package.
+
+Two checks: every module of celestia_app_tpu_torch imported in a fresh
+interpreter leaves neither `jax` nor any `celestia_app_tpu.*` module in
+sys.modules, and no source of the port (nor chip_smoke.py) names one in an
+import statement, including imports inside functions.
+"""
+
+from __future__ import annotations
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "celestia_app_tpu_torch"
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "celestia_app_tpu")
+
+_IMPORT_ALL = """
+import importlib, json, pkgutil, sys
+import celestia_app_tpu_torch as port
+names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "celestia_app_tpu"))
+print(json.dumps({"imported": names, "forbidden": bad}))
+"""
+
+
+def _top_level(name: str) -> str:
+    return name.split(".")[0]
+
+
+def test_importing_every_port_module_loads_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300, check=True)
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "celestia_app_tpu_torch.da.repair" in result["imported"]
+    assert "celestia_app_tpu_torch.serve.verify" in result["imported"]
+    assert result["forbidden"] == []
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_imports_jax_or_the_jax_package(path):
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names += [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.append(node.module)
+    assert not [n for n in names if _top_level(n) in FORBIDDEN], names
