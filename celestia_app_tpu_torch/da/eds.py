@@ -2,6 +2,10 @@
 NMT roots (reference pkg/da/data_availability_header.go:65-75), computed on
 the card by the lowering that kernels/fused.pipeline_mode selects.
 
+The ODS reaches the card through device.upload (pinned staging).  Beside
+the one-square pipelines sit the batched ones of the streaming path
+(parallel/pipeline.py) and the speculative extend ($CELESTIA_PIPE_SPECULATE).
+
 Accessors mirror the rsmt2d surface of celestia_app_tpu/da/eds.py; they
 return host copies.  The per-line trees (`row_tree`, `col_tree`) serve the
 proof constructors of proof/share_proof.py: indexing into the device forest
@@ -11,6 +15,10 @@ shares.
 
 from __future__ import annotations
 
+import hashlib
+import os
+import threading
+import time
 from functools import lru_cache
 
 import numpy as np
@@ -22,11 +30,12 @@ from celestia_app_tpu_torch.constants import (
     PARITY_NAMESPACE_BYTES,
     SHARE_SIZE,
 )
-from celestia_app_tpu_torch.device import resolve_device
+from celestia_app_tpu_torch.device import hand_over, resolve_device, upload
 from celestia_app_tpu_torch.gf.rs import active_construction
 from celestia_app_tpu_torch.kernels import fused
 from celestia_app_tpu_torch.kernels.rs import extend_square_fn, use_xor
 from celestia_app_tpu_torch.nmt.tree import NamespacedMerkleTree
+from celestia_app_tpu_torch.trace import journal
 
 MODES = ("fused", "fused_epi", "staged", "host")
 
@@ -81,6 +90,60 @@ def _cached_pipeline(k: int, construction: str, xor: bool, mode: str,
     return pipeline_for_mode(mode, k, construction, device)
 
 
+def _pipeline_and_state(k: int, construction: str, mode: str, device: torch.device):
+    """The cached pipeline of the active RS core, and "miss" when this call
+    built it (the journal's `compile` field), else "hit"."""
+    misses = _cached_pipeline.cache_info().misses
+    run = _cached_pipeline(k, construction, use_xor(), mode, device)
+    return run, ("miss" if _cached_pipeline.cache_info().misses > misses else "hit")
+
+
+# --- batched (multi-square) pipeline ----------------------------------------
+
+
+def _host_pipeline_batched(k: int, construction: str | None, device):
+    """Each square through the staged pipeline on its own, outputs stacked
+    to the batched shape (celestia_app_tpu/da/eds._host_pipeline_batched)."""
+    run_one = _pipeline(k, construction, device)
+
+    def run(odss: torch.Tensor):
+        outs = [run_one(odss[b]) for b in range(odss.shape[0])]
+        return tuple(torch.stack([o[i] for o in outs]) for i in range(4))
+
+    return run
+
+
+def _batched_pipeline_for_mode(mode: str, k: int, batch: int,
+                               construction: str | None = None, device=None):
+    """f(odss) with odss (batch, k, k, S) -> (eds, row_roots, col_roots,
+    droots), each with the leading batch axis.  fused_epi folds into the
+    fused batch (kernels/fused.extend_and_dah_batched_fn says why); staged
+    runs that batch too, which is the staged composition (the batched
+    extend, then the batched roots) as the port has no fused program to
+    tell it from; host runs square by square."""
+    if mode not in MODES:
+        raise ValueError(f"unknown pipeline mode {mode!r}; expected one of {MODES}")
+    dev = resolve_device(device)
+    construction = construction or active_construction()
+    if mode == "host":
+        return _host_pipeline_batched(k, construction, dev)
+    return fused.extend_and_dah_batched_fn(k, batch, construction, dev)
+
+
+@lru_cache(maxsize=None)
+def _cached_batched_pipeline(k: int, construction: str, xor: bool, mode: str, batch: int,
+                             device: torch.device):
+    return _batched_pipeline_for_mode(mode, k, batch, construction, device)
+
+
+def pipeline_batched(k: int, batch: int, construction: str | None = None, device=None):
+    """The cached batched pipeline of the active lowering and RS core: the
+    multi-square counterpart of the pipeline `compute` runs
+    (celestia_app_tpu/da/eds.jit_pipeline_batched)."""
+    return _cached_batched_pipeline(k, construction or active_construction(), use_xor(),
+                                    fused.pipeline_mode(), batch, resolve_device(device))
+
+
 def _check_square(k: int) -> None:
     if k < 1 or k & (k - 1) or k > MAX_CODEC_SQUARE_SIZE:
         raise ValueError(f"invalid square size {k}")
@@ -103,12 +166,19 @@ class ExtendedDataSquare:
         self._tree_memo: dict = {}
         self._forest = None
         self._ods_ns: np.ndarray | None = None
+        # Retention listener: a streamed square's BlockPipeline sets it so
+        # that retention by the serve cache pins the staging slot that fed
+        # the square (parallel/pipeline._BufferRing.pin).
+        self._retain_cb = None
 
     def attach_forest(self, forest) -> None:
         """Hook the retained device forest onto this handle, so every proof
-        path reads its levels instead of hashing rows again."""
+        path reads its levels instead of hashing rows again, and tell the
+        feeding buffer ring, if any, that the square is retained."""
         self._forest = forest
         self._tree_memo.clear()
+        if self._retain_cb is not None:
+            self._retain_cb()
 
     def leaf_namespace(self, row: int, col: int) -> bytes:
         """The namespace the (row, col) leaf carries in its trees: the
@@ -157,19 +227,40 @@ class ExtendedDataSquare:
                 device=None) -> "ExtendedDataSquare":
         """Extend a (k, k, 512) uint8 ODS (numpy or tensor) on `device`
         (default CUDA; a CUDA request without a card raises) through the
-        lowering $CELESTIA_PIPE_FUSED selects at this call."""
+        lowering $CELESTIA_PIPE_FUSED selects at this call.  With
+        $CELESTIA_PIPE_SPECULATE armed, a pending speculation of exactly
+        these bytes is claimed instead of computed again."""
         dev = resolve_device(device)
         k = ods.shape[0]
         _check_square(k)
         if tuple(ods.shape) != (k, k, SHARE_SIZE):
             raise ValueError(f"ODS must be ({k}, {k}, {SHARE_SIZE}), got {tuple(ods.shape)}")
-        x = ods if isinstance(ods, torch.Tensor) else torch.from_numpy(
-            np.array(ods, dtype=np.uint8))
-        if x.dtype != torch.uint8:
-            raise ValueError(f"ODS must be uint8, got {x.dtype}")
-        run = _cached_pipeline(k, construction or active_construction(), use_xor(),
-                               fused.pipeline_mode(), dev)
-        eds, rr, cr, droot = run(x.to(dev))
+        if isinstance(ods, torch.Tensor) and ods.dtype != torch.uint8:
+            raise ValueError(f"ODS must be uint8, got {ods.dtype}")
+        construction = construction or active_construction()
+        spec_outcome = None
+        if speculation_enabled() and _SPECULATOR.pending():
+            claimed = _SPECULATOR.claim(ods, construction, dev)
+            if claimed is not None:
+                eds_obj, spec_mode = claimed
+                journal.record("compute", k, mode=spec_mode, compile="hit",
+                               speculation="hit")
+                return eds_obj
+            # A pending entry that did not match is the round-change
+            # outcome: its square is discarded, never served.
+            spec_outcome = "discard"
+        mode = fused.pipeline_mode()
+        run, state = _pipeline_and_state(k, construction, mode, dev)
+        t0 = time.perf_counter()
+        if isinstance(ods, torch.Tensor):
+            x = ods.to(dev)
+        else:
+            x, _ = upload(np.ascontiguousarray(ods, dtype=np.uint8), dev)
+        t1 = time.perf_counter()
+        eds, rr, cr, droot = run(x)
+        journal.record("compute", k, mode=mode, compile=state, upload_ms=(t1 - t0) * 1e3,
+                       dispatch_ms=(time.perf_counter() - t1) * 1e3,
+                       **({"speculation": spec_outcome} if spec_outcome else {}))
         return cls(eds, rr, cr, droot, k)
 
     # --- rsmt2d-surface accessors (host copies) ---------------------------
@@ -222,8 +313,140 @@ def extend_shares(shares: list[bytes], construction: str | None = None,
     if k * k != n:
         raise ValueError(f"share count {n} is not a perfect square")
     _check_square(k)
-    for i, s in enumerate(shares):
-        if len(s) != SHARE_SIZE:
-            raise ValueError(f"share {i} has length {len(s)}, want {SHARE_SIZE}")
-    ods = np.frombuffer(b"".join(shares), dtype=np.uint8).reshape(k, k, SHARE_SIZE)
+    if set(map(len, shares)) != {SHARE_SIZE}:
+        i, length = next((i, len(s)) for i, s in enumerate(shares) if len(s) != SHARE_SIZE)
+        raise ValueError(f"share {i} has length {length}, want {SHARE_SIZE}")
+    # A bytearray, so the ODS is a writable array that a tensor can view.
+    ods = np.frombuffer(bytearray().join(shares), dtype=np.uint8).reshape(k, k, SHARE_SIZE)
     return ExtendedDataSquare.compute(ods, construction, device)
+
+
+# --- speculative extend ------------------------------------------------------
+#
+# $CELESTIA_PIPE_SPECULATE=on arms cross-height speculation
+# (celestia_app_tpu/da/eds.py): a caller that sees the next proposal early
+# starts its extend + DAH ahead of adoption, and compute() claims the result
+# instead of computing again.  A claim hits only when the bytes (by SHA-256
+# digest), the RS construction and the device are exactly those speculated;
+# anything else discards the entry, costing one wasted computation.  Unlike
+# the JAX package, whose speculate() swallows a dispatch fault behind its
+# degradation ladder, a kernel fault here raises to the caller.
+
+
+def speculation_enabled() -> bool:
+    """$CELESTIA_PIPE_SPECULATE: "on", "1" or "true" arms the seam (default
+    off: speculation trades wasted work for latency, the operator's call)."""
+    return os.environ.get("CELESTIA_PIPE_SPECULATE", "").lower() in ("on", "1", "true")
+
+
+def _host_bytes(ods) -> np.ndarray:
+    if isinstance(ods, torch.Tensor):
+        return ods.cpu().numpy()
+    return np.ascontiguousarray(ods, dtype=np.uint8)
+
+
+class SpeculativeExtender:
+    """One in-flight speculative extend: the next proposal's square.
+
+    `speculate()` digests the candidate ODS and, on the card, uploads it
+    and launches the active pipeline on a side stream of its own, parking
+    the outputs with the event recorded after them; it returns without
+    waiting.  `claim()` returns the square iff the claimed bytes,
+    construction and device are the speculated ones, having made the
+    caller's stream wait on that event; any mismatch discards the entry.
+    `discard()` is the explicit round-change hook.  At most one entry: a
+    second speculate() replaces, and counts as discarding, the first.
+    `outcomes` counts hits and discards."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._entry: dict | None = None
+        self._streams: dict[torch.device, torch.cuda.Stream] = {}
+        self.outcomes = {"hit": 0, "discard": 0}
+
+    @staticmethod
+    def _digest(host: np.ndarray) -> bytes:
+        return hashlib.sha256(host.tobytes()).digest()
+
+    def _stream(self, dev: torch.device):
+        with self._lock:
+            if dev not in self._streams:
+                self._streams[dev] = torch.cuda.Stream(dev)
+            return self._streams[dev]
+
+    def speculate(self, ods, *, height: int | None = None, round_: int | None = None,
+                  construction: str | None = None, device=None) -> bool:
+        """Start extending `ods` ahead of adoption on `device` (default
+        CUDA); False when the seam is off (callers need no second gate)."""
+        if not speculation_enabled():
+            return False
+        dev = resolve_device(device)
+        k = ods.shape[0]
+        _check_square(k)
+        if tuple(ods.shape) != (k, k, SHARE_SIZE):
+            raise ValueError(f"ODS must be ({k}, {k}, {SHARE_SIZE}), got {tuple(ods.shape)}")
+        construction = construction or active_construction()
+        host = _host_bytes(ods)
+        mode = fused.pipeline_mode()
+        run = _cached_pipeline(k, construction, use_xor(), mode, dev)
+        done = None
+        if dev.type == "cuda":
+            stream = self._stream(dev)
+            # Ordered after the caller's queued work, which includes the
+            # generator upload of a pipeline built by the line above.
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                out = run(upload(host, dev)[0])
+                done = torch.cuda.Event()
+                done.record(stream)
+        else:
+            out = run(upload(host, dev)[0])
+        with self._lock:
+            if self._entry is not None:
+                self.outcomes["discard"] += 1
+            self._entry = {"digest": self._digest(host), "height": height, "round": round_,
+                           "k": k, "construction": construction, "device": dev,
+                           "mode": mode, "outputs": out, "done": done}
+        return True
+
+    def claim(self, ods, construction: str | None = None, device=None):
+        """(ExtendedDataSquare, mode) when the pending speculation is exactly
+        the square being adopted (bytes, construction, device: default
+        CUDA), else None, with the mismatched entry discarded."""
+        with self._lock:
+            entry, self._entry = self._entry, None
+        if entry is None:
+            return None
+        dev = resolve_device(device)
+        if (entry["k"] != ods.shape[0] or entry["device"] != dev
+                or entry["construction"] != (construction or active_construction())
+                or entry["digest"] != self._digest(_host_bytes(ods))):
+            with self._lock:
+                self.outcomes["discard"] += 1
+            return None
+        with self._lock:
+            self.outcomes["hit"] += 1
+        hand_over(entry["outputs"], entry["done"])
+        return ExtendedDataSquare(*entry["outputs"], entry["k"]), entry["mode"]
+
+    def discard(self) -> bool:
+        """Drop the pending entry (the round-change signal); True when there
+        was one."""
+        with self._lock:
+            entry, self._entry = self._entry, None
+            if entry is not None:
+                self.outcomes["discard"] += 1
+        return entry is not None
+
+    def pending(self) -> bool:
+        with self._lock:
+            return self._entry is not None
+
+
+_SPECULATOR = SpeculativeExtender()
+
+
+def speculator() -> SpeculativeExtender:
+    """The process-wide speculative extender (one in-flight next-block
+    speculation per process, like the consensus loop it serves)."""
+    return _SPECULATOR

@@ -43,7 +43,7 @@ from celestia_app_tpu_torch.constants import SHARE_SIZE
 from celestia_app_tpu_torch.convert import bits_tensor
 from celestia_app_tpu_torch.da.dah import DataAvailabilityHeader
 from celestia_app_tpu_torch.da.eds import ExtendedDataSquare, _cached_pipeline
-from celestia_app_tpu_torch.device import resolve_device
+from celestia_app_tpu_torch.device import resolve_device, upload
 from celestia_app_tpu_torch.gf.rs import active_construction, codec_for_width
 from celestia_app_tpu_torch.kernels.fused import pipeline_mode
 from celestia_app_tpu_torch.kernels.rs import encode_axis, use_xor
@@ -253,7 +253,7 @@ def repair(shares, present, dah: DataAvailabilityHeader | None = None, *,
     if isinstance(shares, torch.Tensor):
         damaged = shares.to(dev)
     else:
-        damaged = torch.from_numpy(np.require(shares, np.uint8, ("C", "W"))).to(dev)
+        damaged, _ = upload(np.asarray(shares), dev)
     n = damaged.shape[0]
     if (damaged.dtype != torch.uint8 or tuple(damaged.shape) != (n, n, SHARE_SIZE) or n % 2
             or present_host.shape != (n, n)):

@@ -8,7 +8,9 @@ point launches on the caller's stream and returns cudaGetLastError(); a
 non-zero code raises here.  Nothing falls back to a plain version.
 
 `LAUNCHES` counts, per kernel, the launches made through `launch`, so a run
-can show that its main path went through the kernels.
+can show that its main path went through the kernels.  The streaming
+pipeline launches from its dispatcher thread while the caller may launch
+too, so the counts change under a lock.
 """
 
 from __future__ import annotations
@@ -60,12 +62,14 @@ LAUNCHES: dict[str, int] = {
 }
 
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 _LOADED: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def nvcc_path() -> str:
@@ -153,4 +157,5 @@ def launch(kernel: str, lib: str, fn: str, *args) -> None:
     rc = call(*ptrs, stream)
     if rc != 0:
         raise RuntimeError(f"{fn} failed to launch: CUDA error {rc}")
-    LAUNCHES[kernel] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[kernel] += 1

@@ -21,8 +21,8 @@ from functools import lru_cache
 
 import torch
 
-from celestia_app_tpu_torch.constants import NAMESPACE_SIZE
-from celestia_app_tpu_torch.kernels.merkle import merkle_root_pow2
+from celestia_app_tpu_torch.constants import NAMESPACE_SIZE, SHARE_SIZE
+from celestia_app_tpu_torch.kernels.merkle import merkle_root_pow2, merkle_roots_pow2
 from celestia_app_tpu_torch.kernels.nmt import (
     leaf_digests,
     parity_namespaces,
@@ -30,7 +30,7 @@ from celestia_app_tpu_torch.kernels.nmt import (
     tree_roots_from_digests,
 )
 from celestia_app_tpu_torch.device import resolve_device
-from celestia_app_tpu_torch.kernels.rs import encode_fn
+from celestia_app_tpu_torch.kernels.rs import encode_fn, extend_square_fn
 from celestia_app_tpu_torch.kernels.rs_xor import bottom_leaf_fn
 
 
@@ -52,10 +52,11 @@ def pipeline_mode() -> str:
 
 
 def leaf_namespaces(eds: torch.Tensor, k: int) -> torch.Tensor:
-    """(2k, 2k, 29) row-major leaf namespaces: Q0 leaves carry the share's
-    own namespace, every parity leaf (row >= k or col >= k) 0xFF^29
-    (reference pkg/wrapper/nmt_wrapper.go:93-114)."""
-    n = eds.shape[0]
+    """(..., 2k, 2k, 29) row-major leaf namespaces of (..., 2k, 2k, S)
+    squares: Q0 leaves carry the share's own namespace, every parity leaf
+    (row >= k or col >= k) 0xFF^29 (reference
+    pkg/wrapper/nmt_wrapper.go:93-114)."""
+    n = eds.shape[-2]
     idx = torch.arange(n, device=eds.device)
     q0 = (idx[:, None] < k) & (idx[None, :] < k)
     return torch.where(q0[..., None], eds[..., :NAMESPACE_SIZE],
@@ -119,6 +120,60 @@ def extend_and_dah_fn(k: int, construction: str | None = None,
         if roots_only:
             return roots
         return (eds, *roots)
+
+    return run
+
+
+# --- batched multi-square dispatch -------------------------------------------
+#
+# The streaming pipeline (parallel/pipeline.py) coalesces queued same-k
+# squares and runs them as one batch.  Where the JAX package vmaps one
+# program over the batch, the port widens each launch: B squares stacked as
+# (B, k, k, S) are one rs_dense launch per phase, one sha256_leaves launch
+# for all B*4k^2 leaves, one sha256_batch launch per tree level for all
+# B*4k row and column trees, and one per level of the B data-root trees.
+#
+# fused_epi folds into this body, as in the JAX package
+# (celestia_app_tpu/kernels/fused.py:306-310): the epilogue kernel's work
+# items and its `int n2` column count (csrc/rs_dense_leaf.cu) are sized
+# for one square, and widening them is a kernel change of its own.  Every
+# lowering gives the same bytes, so the batch loses nothing but the
+# epilogue's fusion.
+
+
+def roots_from_eds_batched(eds: torch.Tensor, k: int):
+    """eds (B, 2k, 2k, S) -> (row_roots (B, 2k, 90), col_roots (B, 2k, 90),
+    droots (B, 32)), each square's roots those of roots_from_eds."""
+    b, n = eds.shape[0], eds.shape[1]
+    ns = leaf_namespaces(eds, k)
+    _, _, hashes = leaf_digests(ns.reshape(b * n, n, NAMESPACE_SIZE),
+                                eds.reshape(b * n, n, eds.shape[-1]))
+    hashes = hashes.view(b, n, n, 32)
+    # Per square its row trees, then its column trees over the transposed
+    # grid: one set of B*4k trees, reduced together level by level.
+    tree_ns = torch.stack([ns, ns.transpose(1, 2)], dim=1).reshape(b * 2 * n, n, NAMESPACE_SIZE)
+    tree_hashes = torch.stack([hashes, hashes.transpose(1, 2)], dim=1).reshape(b * 2 * n, n, 32)
+    roots = tree_roots_from_digests(tree_ns, tree_ns, tree_hashes).view(b, 2 * n, 90)
+    return roots[:, :n], roots[:, n:], merkle_roots_pow2(roots)
+
+
+def extend_and_dah_batched_fn(k: int, batch: int, construction: str | None = None,
+                              device=None):
+    """f(odss) for odss (batch, k, k, 512) uint8 on `device` ->
+    (eds (batch, 2k, 2k, 512), row_roots (batch, 2k, 90), col_roots
+    (batch, 2k, 90), droots (batch, 32)), every square byte-identical to
+    extend_and_dah_fn's (the counterpart of
+    celestia_app_tpu/kernels/fused.jit_extend_and_dah_batched)."""
+    if batch < 1:
+        raise ValueError(f"batch must be >= 1, got {batch}")
+    extend = extend_square_fn(k, construction, device)
+
+    def run(odss: torch.Tensor):
+        if tuple(odss.shape) != (batch, k, k, SHARE_SIZE):
+            raise ValueError(f"expected ({batch}, {k}, {k}, {SHARE_SIZE}) squares, "
+                             f"got {tuple(odss.shape)}")
+        eds = extend(odss)
+        return (eds, *roots_from_eds_batched(eds, k))
 
     return run
 

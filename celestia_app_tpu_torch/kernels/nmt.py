@@ -28,8 +28,10 @@ _MAX_NS_BYTE = PARITY_NAMESPACE_BYTES[0]  # every byte of the parity namespace i
 
 
 def parity_namespaces(shape: tuple[int, ...], device) -> torch.Tensor:
-    """(*shape, 29) copies of the parity namespace 0xFF^29 (a broadcast view)."""
-    parity = torch.tensor(list(PARITY_NAMESPACE_BYTES), dtype=torch.uint8, device=device)
+    """(*shape, 29) copies of the parity namespace 0xFF^29 (a broadcast view).
+    A fill on the device: a tensor built from host bytes would be a pageable
+    copy, which waits for the stream's queued work on every call."""
+    parity = torch.full((NAMESPACE_SIZE,), _MAX_NS_BYTE, dtype=torch.uint8, device=device)
     return parity.expand(*shape, NAMESPACE_SIZE)
 
 

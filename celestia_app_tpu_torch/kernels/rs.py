@@ -16,6 +16,7 @@ celestia_app_tpu/kernels/rs.py:73-91; the core is the dense kernel
 
 from __future__ import annotations
 
+import math
 import os
 from functools import lru_cache
 
@@ -36,23 +37,27 @@ def use_xor() -> bool:
 
 def _encode_with(core, data: torch.Tensor, G: torch.Tensor, m: int,
                  contract_axis: int) -> torch.Tensor:
+    # Every axis but the contracted one and the share bytes is batch: B
+    # stacked squares widen the one launch B times.
     bps = m // 8
-    x = data.movedim(contract_axis, 0)  # (n, batch, S)
-    n, batch, S = x.shape
+    x = data.movedim(contract_axis, 0)  # (n, *lines, S)
+    n, lines, S = x.shape[0], x.shape[1:-1], x.shape[-1]
+    batch = math.prod(lines)
     nsym = S // bps
     planes = x.reshape(n, batch, nsym, bps).movedim(3, 1)  # (n, bps, batch, nsym)
     out = core(G, planes.reshape(n, bps, batch * nsym), m)
     P = out.shape[0]
     by = out.reshape(P, bps, batch, nsym).movedim(1, 3)  # (P, batch, nsym, bps)
-    return by.reshape(P, batch, S).movedim(0, contract_axis)
+    return by.reshape(P, *lines, S).movedim(0, contract_axis)
 
 
 def encode_axis(data: torch.Tensor, G_bits: torch.Tensor, m: int,
                 contract_axis: int = 1) -> torch.Tensor:
-    """Systematic encode of (A, B, S) bytes over `contract_axis` (dense core).
+    """Systematic encode of (..., S) bytes over `contract_axis` (dense core),
+    all other axes but S batched into one launch.
 
     Returns parity with the contracted axis replaced by P = G rows / m at
-    the same position; the other two axes are untouched."""
+    the same position; the other axes are untouched."""
     return _encode_with(mod2_matmul_planes, data, G_bits, m, contract_axis)
 
 
@@ -91,15 +96,16 @@ def encode_fn(k: int, construction: str | None = None, device=None):
 
 
 def extend_square_fn(k: int, construction: str | None = None, device=None):
-    """eds = f(ods): (k, k, S) uint8 -> (2k, 2k, S) with quadrants
-    [[Q0, Q1], [Q2, Q3]] (row parity right, column parity below)."""
+    """eds = f(ods): (..., k, k, S) uint8 -> (..., 2k, 2k, S) with quadrants
+    [[Q0, Q1], [Q2, Q3]] (row parity right, column parity below); leading
+    axes are a batch of squares, each phase one launch for all of them."""
     encode = encode_fn(k, construction, device)
 
     def extend(ods: torch.Tensor) -> torch.Tensor:
-        top = torch.cat([ods, encode(ods, 1)], dim=1)  # (k, 2k, S)
+        top = torch.cat([ods, encode(ods, -2)], dim=-2)  # (..., k, 2k, S)
         # Row and column encodes commute: the column phase contracts over
         # the row axis of the top half and yields Q2 and Q3 directly.
-        return torch.cat([top, encode(top, 0)], dim=0)
+        return torch.cat([top, encode(top, -3)], dim=-3)
 
     return extend
 

@@ -42,7 +42,20 @@ Phases, in order; any failure raises and the script exits non-zero:
              random samples on each axis through ProofSampler.sample_batch
              (32 held byte-equal to the host lowering), and verify_proofs on
              all of them and on a queue with 64 tampered proofs, exactly
-             those rejected.
+             those rejected;
+  8. uploads the one-shot calls' staged (pinned) host-to-device copy against a
+             pageable one, in turns: the upload alone and extend_shares at
+             k=128 and 512, and the k=512 repair;
+  9. stream  stream_blocks at k=128 (leopard, 32 squares, batch 1 and 4) and
+             k=512 (vandermonde, 8 squares, batch 1), depth 2: every data root
+             equal to a one-shot compute, squares per second beside the
+             one-shot time, launches per dispatch (counted per batch from the
+             journal rows), the journal's stage medians, the device idle
+             share and the copy/kernel overlap under the profiler; the
+             epilogue and the XOR core through the stream once each; forests
+             built on the default stream while the pipeline runs, equal to
+             the one-shot forests; a speculation hit and a discard; the
+             ring's swap of a pinned slot.
 Then one JSON line per kernel table, the card's name and power limit, and
 last the result line {"ok": true, "device": {...}}.  Needs no network and no
 argument; exits non-zero without a CUDA device.
@@ -478,38 +491,52 @@ def phase_goldens(card: str) -> None:
         log(f"golden MinDAH, k=2, k=128 under CELESTIA_PIPE_FUSED={fused}: equal")
 
 
-def device_breakdown(torch, fn, card: str, label: str) -> None:
-    """Device time by kernel over one call of `fn` (torch.profiler), and the
-    share of the call's wall time in which the device was busy."""
+def profiled_spans(torch, fn, host: bool = True):
+    """(wall µs, [(start µs, end µs, name)] of the device events) of one
+    call of `fn` under torch.profiler, ended by a synchronize; `host=False`
+    records the device activity alone (cheaper for long runs)."""
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return wall_us, [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def merged(spans) -> list[tuple[float, float]]:
+    """The union of [start, end) intervals, sorted and disjoint."""
+    out: list[list[float]] = []
+    for start, end, *_ in sorted(spans):
+        if out and start <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], end)
+        else:
+            out.append([start, end])
+    return [(a, b) for a, b in out]
+
+
+def device_breakdown(torch, fn, card: str, label: str) -> float | None:
+    """Device time by kernel over one call of `fn` (torch.profiler), and the
+    share of the call's wall time in which the device was busy; returns the
+    idle share in percent (None when the profiler saw no device events)."""
+    wall_us, spans = profiled_spans(torch, fn)
     if not spans:
         log(f"[{card}] {label}: device time not measured (the profiler saw no device events)")
-        return
+        return None
     by_name: dict[str, float] = {}
     for start, end, name in spans:
         by_name[name] = by_name.get(name, 0.0) + (end - start)
-    busy, last = 0.0, None
-    for start, end, _ in sorted(spans):
-        if last is None or start > last:
-            busy += end - start
-            last = end
-        elif end > last:
-            busy += end - last
-            last = end
+    busy = sum(b - a for a, b in merged(spans))
     log(f"[{card}] {label} under the profiler: wall {wall_us / 1e3:.3f} ms, device busy "
         f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}% of wall, idle "
         f"{100 - 100 * busy / wall_us:.1f}%)")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"    {us / 1e3:9.3f} ms  {name[:100]}")
+    return 100 - 100 * busy / wall_us
 
 
 def random_square(k: int, seed: int) -> np.ndarray:
@@ -949,6 +976,274 @@ def phase_das(torch, eds, card: str) -> None:
         f"siblings, 16 row roots, 16 data roots): exactly those 64 false; {ms:.3f} ms")
 
 
+@contextlib.contextmanager
+def swapped(module, name: str, value):
+    """Replace module.name for the block, then restore it."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def phase_uploads(torch, eds, card: str) -> None:
+    """The one-shot calls' host-to-device copy, staged through pinned memory
+    (device.upload, what the calls run) against a pageable copy of the same
+    array, in turns (staged, pageable, pageable, staged): the upload alone
+    and extend_shares at k=128 and 512, and the k=512 repair (Q3
+    withheld, dense path) with its 537 MB damaged square.  The upload alone
+    also against staging whose host copy is a numpy assignment."""
+    import importlib
+    import warnings
+
+    from celestia_app_tpu_torch.da import DataAvailabilityHeader, extend_shares, repair
+    from celestia_app_tpu_torch.device import upload
+
+    eds_mod = importlib.import_module("celestia_app_tpu_torch.da.eds")
+    repair_mod = importlib.import_module("celestia_app_tpu_torch.da.repair")
+    dev = torch.device("cuda")
+
+    def pageable(parts, device, **_kw):
+        with warnings.catch_warnings():  # a read-only array is only read
+            warnings.simplefilter("ignore")
+            return torch.from_numpy(np.ascontiguousarray(parts)).to(device), None
+
+    def numpy_staged(a):
+        staging = torch.empty(a.shape, dtype=torch.uint8, pin_memory=True)
+        staging.numpy()[...] = a
+        return staging.to(dev, non_blocking=True)
+
+    k = eds.k
+    present = np.ones((2 * k, 2 * k), dtype=bool)
+    present[k:, k:] = False
+    damaged = eds.squared()
+    damaged[k:, k:] = 0
+    dah = DataAvailabilityHeader.from_eds(eds)
+    cases = []
+    for kk in (128, 512):
+        ods = random_square(kk, seed=900 + kk)
+        shares = [row.tobytes() for row in ods.reshape(kk * kk, 512)]
+        cases.append((f"upload alone k={kk} ({ods.nbytes / 1e6:.1f} MB)", None, {
+            "staged": lambda ods=ods: upload(ods, dev),
+            "pageable": lambda ods=ods: pageable(ods, dev),
+            "staged with a numpy host copy": lambda ods=ods: numpy_staged(ods)}))
+        call = lambda shares=shares: extend_shares(shares, "vandermonde").data_root()  # noqa: E731
+        cases.append((f"extend_shares k={kk}", eds_mod, {"staged": call, "pageable": call}))
+    call = lambda: repair(damaged, present, dah)  # noqa: E731
+    cases.append((f"repair k={k} Q3 withheld ({damaged.nbytes / 1e6:.1f} MB upload)", repair_mod,
+                  {"staged": call, "pageable": call}))
+    with environment({"CELESTIA_PIPE_FUSED": "on", "CELESTIA_RS_XOR": "off",
+                      "CELESTIA_RS_CONSTRUCTION": "vandermonde"}):
+        for label, module, fns in cases:
+            times: dict[str, list[float]] = {name: [] for name in fns}
+            first = None
+            for name in [*fns, *reversed(fns)]:  # in turns, each variant twice
+                ctx = (swapped(module, "upload", pageable if name == "pageable" else upload)
+                       if module is not None else contextlib.nullcontext())
+                with ctx:
+                    if first is None:  # the first staged call pays the pinned allocation
+                        first = timed_calls(torch, fns[name], reps=1)[0]
+                    times[name] += timed_calls(torch, fns[name], reps=3)
+            med = {name: float(np.median(v)) for name, v in times.items()}
+            parts = ", ".join(f"{name} {med[name]:.3f} ms {[round(t, 3) for t in times[name]]}"
+                              for name in fns)
+            log(f"[{card}] {label}: {parts} (first staged call {first:.3f} ms); faster: "
+                f"{min(med, key=med.get)}")
+
+
+def expected_stream_launches(k: int, rows: list[dict], path: str) -> tuple[int, dict]:
+    """(dispatches, launches) that a stream's journal rows account for: per
+    dispatch two launches of the path's RS core (the epilogue path: one
+    rs_dense and one rs_dense_leaf) and one sha256_leaves; sha256_batch once
+    per tree level of each axis for one square (both axes together in a
+    batch), then once per level of the data-root trees."""
+    levels = (2 * k).bit_length() - 1
+    root_levels = (4 * k).bit_length()
+    singles = sum(1 for r in rows if r["batch_size"] == 1)
+    batches = round(sum(1 / r["batch_size"] for r in rows if r["batch_size"] > 1))
+    dispatches = singles + batches
+    want = {"sha256_leaf": dispatches,
+            "sha256": singles * (2 * levels + root_levels) + batches * (levels + root_levels)}
+    core = {"dense": {"rs_dense": 2, "rs_xor": 0, "rs_dense_leaf": 0},
+            "xor": {"rs_dense": 0, "rs_xor": 2, "rs_dense_leaf": 0},
+            "epi": {"rs_dense": 1, "rs_xor": 0, "rs_dense_leaf": 1}}[path]
+    if path == "epi" and batches:
+        raise ValueError("the epilogue runs unbatched only")
+    want.update({name: n * dispatches for name, n in core.items()})
+    return dispatches, want
+
+
+def stream_overlap(torch, fn, card: str, label: str) -> None:
+    """Device idle share of one stream under torch.profiler, and how much of
+    its host-to-device copy time overlapped kernels."""
+    wall_us, spans = profiled_spans(torch, fn, host=False)
+    if not spans:
+        log(f"[{card}] {label}: device idle share not measured (no device events)")
+        return
+    busy = sum(b - a for a, b in merged(spans))
+    copies = [sp for sp in spans if "HtoD" in sp[2]]
+    kernels = merged([sp for sp in spans if not sp[2].startswith(("Memcpy", "Memset"))])
+    copy_us = sum(e - s for s, e, _ in copies)
+    overlap_us = sum(max(0.0, min(e, b) - max(s, a)) for s, e, _ in copies for a, b in kernels)
+    log(f"[{card}] {label} under the profiler: wall {wall_us / 1e3:.3f} ms, device busy "
+        f"{busy / 1e3:.3f} ms, idle {100 - 100 * busy / wall_us:.1f}%; {len(copies)} "
+        f"host-to-device copies {copy_us / 1e3:.3f} ms, {overlap_us / 1e3:.3f} ms of them "
+        f"({100 * overlap_us / max(copy_us, 1e-9):.1f}%) beside kernels")
+
+
+STREAM_STAGES = ("intake_wait_ms", "upload_ms", "upload_stall_ms", "dispatch_ms",
+                 "dispatch_starve_ms", "drain_ms")
+
+
+def phase_stream(torch, card: str) -> None:
+    """Block streaming on the card: stream_blocks at k=128 (leopard, batch 1
+    and 4, 32 squares) and k=512 (vandermonde, batch 1, 8 squares), depth 2,
+    every data root equal to a one-shot compute of the same ODS; the
+    epilogue and the XOR core through the stream once each; forests built
+    on the default stream while the pipeline runs; a speculation hit and a
+    discard; the ring's swap of a pinned slot."""
+    from celestia_app_tpu_torch.da import ExtendedDataSquare
+    from celestia_app_tpu_torch.da.eds import speculator
+    from celestia_app_tpu_torch.kernels import _build
+    from celestia_app_tpu_torch.kernels.fused import forest
+    from celestia_app_tpu_torch.parallel import BlockPipeline, stream_blocks
+    from celestia_app_tpu_torch.parallel.pipeline import _BufferRing
+    from celestia_app_tpu_torch.trace import journal
+
+    dense = {"CELESTIA_PIPE_FUSED": "on", "CELESTIA_RS_XOR": "off"}
+    squares = {}
+    for k, construction, n in ((128, "leopard", 32), (512, "vandermonde", 8)):
+        with environment({**dense, "CELESTIA_RS_CONSTRUCTION": construction}):
+            blocks = [(i, random_square(k, seed=7000 + 10 * k + i)) for i in range(n)]
+            want, one_ms = [], []
+            for _, ods in blocks:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want.append(ExtendedDataSquare.compute(ods).data_root())
+                one_ms.append((time.perf_counter() - t0) * 1e3)
+            squares[k] = (construction, blocks, want, one_ms)
+
+    def run(k: int, batch: int, path: str, env: dict, n: int | None = None) -> None:
+        construction, blocks, want, one_ms = squares[k]
+        blocks, want = blocks[:n], want[:n]
+        label = (f"stream k={k} {construction} {path} path, depth 2, batch {batch}, "
+                 f"{len(blocks)} squares")
+        with environment({**env, "CELESTIA_RS_CONSTRUCTION": construction}):
+            t0 = time.perf_counter()
+            BlockPipeline(k, depth=2, batch=batch).close()
+            setup_ms = (time.perf_counter() - t0) * 1e3
+            # First launches of this stream's pipelines and its steady-state
+            # device memory (depth batches in flight).
+            for _ in stream_blocks(iter(blocks[:max(4, 2 * batch)]), k, depth=2, batch=batch):
+                pass
+            walls, rows, per_batch = [], [], None
+            for _ in range(3):
+                before = len(journal.rows("stream"))
+                _build.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = [(t, e.data_root()) for t, e in stream_blocks(iter(blocks), k, depth=2,
+                                                                     batch=batch)]
+                walls.append((time.perf_counter() - t0) * 1e3)
+                launches = dict(_build.LAUNCHES)
+                run_rows = journal.rows("stream")[before:]
+                if [t for t, _ in got] != list(range(len(blocks))) or \
+                        [r for _, r in got] != want:
+                    raise AssertionError(f"{label}: streamed data roots != one-shot roots")
+                dispatches, want_launches = expected_stream_launches(k, run_rows, path)
+                check_launches(label, launches, want_launches)
+                per_batch = per_batch or {name: round(c / dispatches, 2)
+                                          for name, c in launches.items()}
+                rows += run_rows
+            wall = float(np.median(walls))
+            med = {name: round(float(np.median([r[name] for r in rows])), 3)
+                   for name in STREAM_STAGES}
+            sizes = [r["batch_size"] for r in rows]
+            log(f"[{card}] {label}: every data root == one-shot compute in 3 streams; wall "
+                f"{wall:.3f} ms (median of {[round(w, 3) for w in walls]}), "
+                f"{1e3 * len(blocks) / wall:.2f} squares/s, {wall / len(blocks):.3f} ms per "
+                f"square (one-shot compute + data_root {float(np.median(one_ms)):.3f} ms median "
+                f"of {len(one_ms)}); {round(sum(1 / b for b in sizes)) / 3:.1f} dispatches per "
+                f"stream, launches per dispatch {per_batch}; journal medians {med}; a first "
+                f"pipeline's set-up (threads, streams, {3 * batch * k * k * 512 / 1e6:.1f} MB "
+                f"of pinned slots) {setup_ms:.3f} ms")
+            if path == "dense":
+                stream_overlap(torch, lambda: [e.data_root() for _, e in stream_blocks(
+                    iter(blocks), k, depth=2, batch=batch)], card, label)
+
+    run(128, 1, "dense", dense)
+    run(128, 4, "dense", dense)
+    run(512, 1, "dense", dense)
+    run(128, 1, "epi", {"CELESTIA_PIPE_FUSED": "epi", "CELESTIA_RS_XOR": "off"}, n=8)
+    run(128, 2, "xor", {"CELESTIA_PIPE_FUSED": "on", "CELESTIA_RS_XOR": "on"}, n=8)
+
+    # Forests built on the default stream from streamed squares, each
+    # square dropped as soon as its forest launches are enqueued, while
+    # the pipeline keeps allocating on its own streams.
+    construction, blocks, _, _ = squares[128]
+    build = forest(128)
+    with environment({**dense, "CELESTIA_RS_CONSTRUCTION": construction}):
+        pipe = BlockPipeline(128, depth=2, batch=2)
+        forests = {}
+        try:
+            for i, (tag, ods) in enumerate(blocks[:12], start=1):
+                pipe.submit(ods, tag)
+                if i > 2:
+                    t, e = pipe._drain_one()
+                    forests[t] = build(e._eds)
+                    del e
+            for t, e in pipe.drain():
+                forests[t] = build(e._eds)
+                del e
+        finally:
+            pipe.close()
+        for tag, ods in blocks[:12]:
+            row_flat, col_flat = build(ExtendedDataSquare.compute(ods)._eds)
+            if not (torch.equal(forests[tag][0], row_flat) and torch.equal(forests[tag][1], col_flat)):
+                raise AssertionError(f"forest of streamed square {tag} != its one-shot forest")
+    log(f"[{card}] forests of 12 streamed k=128 squares, built on the default stream while "
+        f"the pipeline ran: equal to the one-shot forests")
+
+    # Speculation: a hit claimed by compute() and a discard on another square.
+    with environment({**dense, "CELESTIA_RS_CONSTRUCTION": construction,
+                      "CELESTIA_PIPE_SPECULATE": "on"}):
+        (_, a), (_, b) = blocks[0], blocks[1]
+        sp = speculator()
+        sp.discard()
+        ref = ExtendedDataSquare.compute(a)
+        hits, discards = sp.outcomes["hit"], sp.outcomes["discard"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sp.speculate(a, height=1, round_=0)
+        t1 = time.perf_counter()
+        got = ExtendedDataSquare.compute(a)
+        root = got.data_root()
+        t2 = time.perf_counter()
+        if sp.outcomes["hit"] != hits + 1 or not torch.equal(got._eds, ref._eds) \
+                or root != ref.data_root() or got.row_roots() != ref.row_roots():
+            raise AssertionError("speculation: the claimed square != the computed one")
+        sp.speculate(a, height=2, round_=0)
+        other = ExtendedDataSquare.compute(b)
+        if sp.outcomes["discard"] != discards + 1 or sp.pending() \
+                or other.data_root() != squares[128][2][1]:
+            raise AssertionError("speculation: a different square did not discard")
+        log(f"[{card}] speculation k=128: hit equal to the computed square (speculate "
+            f"{(t1 - t0) * 1e3:.3f} ms, claim + data_root {(t2 - t1) * 1e3:.3f} ms); a "
+            f"different square discarded it and computed its own root")
+
+    # The ring's swap of a pinned slot allocates fresh pinned memory.
+    for k, batch in ((128, 4), (512, 1)):
+        ring = _BufferRing(k, slots=1, batch=batch, pinned=True)
+        sid = ring.acquire(1.0)
+        ring.pin(sid)
+        ring.release(sid)
+        t0 = time.perf_counter()
+        ring.acquire(1.0)
+        log(f"[{card}] ring swap of a pinned ({batch}, {k}, {k}, 512) slot "
+            f"({batch * k * k * 512 / 1e6:.1f} MB): {(time.perf_counter() - t0) * 1e3:.3f} ms")
+
+
 def main() -> int:
     import torch
 
@@ -979,14 +1274,32 @@ def main() -> int:
     log(rs_dense_leaf_roles(_build))
 
     table = Table()
+    t0 = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        nonlocal t0
+        log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+
     phase_kernels(torch, table, card)
+    phase_done("kernels")
     phase_goldens(card)
+    phase_done("goldens")
     counts = phase_full(torch, 512, "vandermonde", card, seed=512)
     phase_full(torch, 128, "leopard", card, seed=128)
+    phase_done("full")
     phase_block(card)
+    phase_done("block")
     eds = read_side_square(512)
     phase_repair(torch, eds, card)
+    phase_done("repair")
     phase_das(torch, eds, card)
+    phase_done("das")
+    phase_uploads(torch, eds, card)
+    phase_done("uploads")
+    del eds
+    phase_stream(torch, card)
+    phase_done("stream")
 
     # Each kernel's launches on the k=512 path that runs it: the column
     # phase's kernel names the path, the hashing kernels run on every path.

@@ -249,3 +249,132 @@ def test_forest_sample_verify_on_card_equals_cpu(cuda, k):
     want = [p.verify(r) for p, r in zip(queue, roots)]
     assert want.count(False) == 1
     assert verify_proofs(queue, roots) == want == verify_proofs(queue, roots, device="cpu")
+
+
+def _stream_squares(k: int, n: int, seed: int) -> list[tuple[int, np.ndarray]]:
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        ods = rng.integers(0, 256, (k * k, 512), dtype=np.uint8)
+        ods[:, :29] = 0
+        ods[:, 28] = np.sort(rng.integers(0, 256, k * k))
+        out.append((i, ods.reshape(k, k, 512)))
+    return out
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("k", [16, 128])
+def test_stream_on_card_equals_one_shot(cuda, k, batch, monkeypatch):
+    """stream_blocks on the card: every square, in order, equal to a one-shot
+    compute of its ODS; one pair of RS launches per dispatch."""
+    from celestia_app_tpu_torch.da import ExtendedDataSquare
+    from celestia_app_tpu_torch.parallel import stream_blocks
+    from celestia_app_tpu_torch.trace import journal
+
+    monkeypatch.setenv("CELESTIA_RS_CONSTRUCTION", "leopard")
+    blocks = _stream_squares(k, 10, seed=k + batch)
+    want = [ExtendedDataSquare.compute(ods) for _, ods in blocks]
+    before = len(journal.rows("stream"))
+    _build.reset_launches()
+    out = list(stream_blocks(iter(blocks), k, depth=2, batch=batch))
+    launches = dict(_build.LAUNCHES)
+    assert [t for t, _ in out] == list(range(10))
+    for (_, got), ref in zip(out, want):
+        assert torch.equal(got._eds, ref._eds)
+        assert got.row_roots() == ref.row_roots() and got.col_roots() == ref.col_roots()
+        assert got.data_root() == ref.data_root()
+    rows = journal.rows("stream")[before:]
+    dispatches = round(sum(1 / r["batch_size"] for r in rows))
+    assert launches["rs_dense"] == 2 * dispatches
+    assert launches["sha256_leaf"] == dispatches
+
+
+def test_forests_of_streamed_squares_while_streaming(cuda):
+    """Forests built on the default stream from streamed squares, each
+    square dropped right after its forest launches were enqueued, while the
+    pipeline keeps allocating and launching on its own streams, equal the
+    forests of one-shot squares: the outputs were handed to the caller's
+    stream (a missing record_stream lets the pipeline overwrite a square
+    that the default stream is still hashing)."""
+    from celestia_app_tpu_torch.da import ExtendedDataSquare
+    from celestia_app_tpu_torch.kernels.fused import forest
+    from celestia_app_tpu_torch.parallel import BlockPipeline
+
+    k = 128
+    build = forest(k)
+    blocks = _stream_squares(k, 12, seed=3)
+    pipe = BlockPipeline(k, depth=2, batch=2)
+    got = {}
+    try:
+        for n, (tag, ods) in enumerate(blocks, start=1):
+            pipe.submit(ods, tag)
+            if n > 2:
+                t, eds = pipe._drain_one()
+                got[t] = build(eds._eds)
+                del eds  # no sync: the pipeline may reuse the memory next
+        for t, eds in pipe.drain():
+            got[t] = build(eds._eds)
+            del eds
+    finally:
+        pipe.close()
+    assert sorted(got) == list(range(12))
+    for tag, ods in blocks:
+        row_flat, col_flat = build(ExtendedDataSquare.compute(ods)._eds)
+        assert torch.equal(got[tag][0], row_flat), tag
+        assert torch.equal(got[tag][1], col_flat), tag
+
+
+def test_pipeline_runs_on_its_own_streams(cuda, monkeypatch):
+    """The uploader copies on the copy stream, every kernel launches on the
+    compute stream, and neither is the default stream; the staging slots
+    are pinned."""
+    from celestia_app_tpu_torch.parallel import BlockPipeline
+    from celestia_app_tpu_torch.parallel import pipeline as port_pipeline
+
+    launch_streams, upload_streams = set(), set()
+    real_launch, real_upload = _build.launch, port_pipeline.upload
+
+    def launch(*args):
+        launch_streams.add(torch.cuda.current_stream().cuda_stream)
+        return real_launch(*args)
+
+    def upload(*args, **kwargs):
+        upload_streams.add(kwargs["stream"].cuda_stream)
+        return real_upload(*args, **kwargs)
+
+    monkeypatch.setattr(_build, "launch", launch)
+    monkeypatch.setattr(port_pipeline, "upload", upload)
+    pipe = BlockPipeline(16, depth=2, batch=2)
+    try:
+        for tag, ods in _stream_squares(16, 5, seed=5):
+            pipe.submit(ods, tag)
+        out = list(pipe.drain())
+    finally:
+        pipe.close()
+    assert len(out) == 5
+    default = torch.cuda.default_stream().cuda_stream
+    assert launch_streams == {pipe._compute_stream.cuda_stream} != {default}
+    assert upload_streams == {pipe._copy_stream.cuda_stream} != {default}
+    assert all(pipe._ring.host(s).is_pinned() for s in range(pipe.depth + 1))
+
+
+def test_speculation_on_card(cuda, monkeypatch):
+    """A speculation launched on its side stream and claimed by compute()
+    equals the computed square; a different square discards it."""
+    from celestia_app_tpu_torch.da import ExtendedDataSquare
+    from celestia_app_tpu_torch.da.eds import speculator
+
+    monkeypatch.setenv("CELESTIA_PIPE_SPECULATE", "on")
+    (_, a), (_, b) = _stream_squares(128, 2, seed=9)
+    want = ExtendedDataSquare.compute(a)
+    sp = speculator()
+    sp.discard()
+    hits = sp.outcomes["hit"]
+    assert sp.speculate(a)
+    got = ExtendedDataSquare.compute(a)
+    assert sp.outcomes["hit"] == hits + 1
+    assert torch.equal(got._eds, want._eds) and got.data_root() == want.data_root()
+    assert sp.speculate(a)
+    other = ExtendedDataSquare.compute(b)
+    assert not sp.pending()
+    assert other.data_root() == ExtendedDataSquare.compute(b, device="cpu").data_root()
