@@ -79,6 +79,12 @@ def tree_levels_from_digests(mins, maxs, hashes):
     return levels
 
 
+def tree_levels(ns: torch.Tensor, data: torch.Tensor):
+    """All digest levels for T trees of L leaves (L a power of two): one
+    leaf-digest launch, then one node launch per level."""
+    return tree_levels_from_digests(*leaf_digests(ns, data))
+
+
 def roots_from_levels(levels) -> torch.Tensor:
     """Last level (L=1) -> (T, 90) namespaced roots."""
     mins, maxs, hashes = levels[-1]
@@ -88,3 +94,9 @@ def roots_from_levels(levels) -> torch.Tensor:
 def tree_roots_from_digests(mins, maxs, hashes) -> torch.Tensor:
     """(T, L, 29)^2 x (T, L, 32) leaf digests -> (T, 90) namespaced roots."""
     return roots_from_levels([reduce_to_width(mins, maxs, hashes)])
+
+
+def tree_roots(ns: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """(T, L, 29) x (T, L, D) -> (T, 90) namespaced roots (L a power of
+    two; L = 1 gives the leaf digest with min == max == ns)."""
+    return tree_roots_from_digests(*leaf_digests(ns, data))

@@ -60,3 +60,18 @@ class NamespacedMerkleTree:
 
     def leaf_digests(self) -> list[bytes]:
         return self._build()[0]
+
+    def subtree_root(self, start: int, end: int) -> bytes:
+        """Root of the complete subtree over leaves [start, end).
+
+        The range must be aligned: end-start a power of two dividing start.
+        This is the cached-inner-node lookup of the reference's
+        EDSSubTreeRootCacher.walk (pkg/inclusion/nmt_caching.go:52).
+        """
+        size = end - start
+        if size <= 0 or size & (size - 1) or start % size:
+            raise ValueError(f"unaligned subtree range [{start},{end})")
+        if end > len(self._leaves):
+            raise ValueError(f"subtree range [{start},{end}) exceeds {len(self._leaves)} leaves")
+        height = size.bit_length() - 1
+        return self._build()[height][start // size]

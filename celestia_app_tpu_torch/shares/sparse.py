@@ -55,7 +55,19 @@ def sparse_shares_needed(blob_len: int) -> int:
 
 
 def split_blob(blob: Blob) -> list[Share]:
-    """Split one blob into its share sequence.
+    """Split one blob into its share sequence."""
+    arr = blob_share_array(blob)
+    share_bytes = arr.tobytes()
+    return [
+        Share(share_bytes[i * SHARE_SIZE : (i + 1) * SHARE_SIZE])
+        for i in range(arr.shape[0])
+    ]
+
+
+def blob_share_array(blob: Blob):
+    """The bytes of split_blob's shares as one (n, SHARE_SIZE) uint8 array,
+    without a Share object per share (batched commitments hash them as
+    they lie).
 
     Vectorized: all continuation shares are one numpy reshape over the
     blob bytes instead of a per-share Python loop — share splitting is
@@ -69,8 +81,9 @@ def split_blob(blob: Blob) -> list[Share]:
     )
     first_room = SHARE_SIZE - len(first_prefix)
     if n <= first_room:
-        buf = first_prefix + data
-        return [Share(buf + bytes(SHARE_SIZE - len(buf)))]
+        arr = np.zeros((1, SHARE_SIZE), dtype=np.uint8)
+        arr[0, : len(first_prefix) + n] = np.frombuffer(first_prefix + data, dtype=np.uint8)
+        return arr
 
     cont_prefix = bytes(
         _build_prefix(blob.namespace, blob.share_version, False, None)
@@ -88,11 +101,7 @@ def split_blob(blob: Blob) -> list[Share]:
     if pad:
         rest = np.concatenate([rest, np.zeros(pad, dtype=np.uint8)])
     arr[1:, len(cont_prefix):] = rest.reshape(n_cont, cont_room)
-    share_bytes = arr.tobytes()
-    return [
-        Share(share_bytes[i * SHARE_SIZE : (i + 1) * SHARE_SIZE])
-        for i in range(1 + n_cont)
-    ]
+    return arr
 
 
 class SparseShareSplitter:

@@ -67,8 +67,11 @@ import contextlib
 import hashlib
 import json
 import os
+import shutil
+import signal
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1244,6 +1247,436 @@ def phase_stream(torch, card: str) -> None:
             f"({batch * k * k * 512 / 1e6:.1f} MB): {(time.perf_counter() - t0) * 1e3:.3f} ms")
 
 
+# --- consensus-side entry points: commitments, the proof querier, the bridge ---
+
+
+def share_payload(rng, n: int) -> bytes:
+    """Random blob bytes that need exactly `n` sparse shares."""
+    from celestia_app_tpu_torch.constants import (
+        CONTINUATION_SPARSE_SHARE_CONTENT_SIZE as CONT,
+        FIRST_SPARSE_SHARE_CONTENT_SIZE as FIRST,
+    )
+
+    size = (int(rng.integers(1, FIRST + 1)) if n == 1
+            else FIRST + (n - 2) * CONT + int(rng.integers(1, CONT + 1)))
+    return rng.bytes(size)
+
+
+def commitment_blobs(seed: int, budget: int = 15_500, n_random: int = 113) -> list:
+    """One k=128 square's worth of blobs under 32 v0 namespaces: one blob of
+    each subtree width 1, 2, 4, ..., 32 (a share count drawn in that
+    width's range at threshold 64), a 1.97 MB blob (4,088 shares, width 64),
+    a 5,000-share blob (width 128), then `n_random` blobs whose share counts
+    are drawn log-uniform between 1 (478 B) and 4,088 (1.97 MB), each draw
+    capped so that all blobs together need `budget` shares at most."""
+    from celestia_app_tpu_torch.shares import Blob, Namespace
+
+    rng = np.random.default_rng(seed)
+    namespaces = [Namespace.v0(rng.bytes(10)) for _ in range(32)]
+    counts = [int(rng.integers(1, 65))]
+    counts += [int(rng.integers(32 * w + 1, 64 * w + 1)) for w in (2, 4, 8, 16, 32)]
+    counts += [4088, 5000]
+    for i in range(n_random):
+        room = budget - sum(counts) - (n_random - i - 1)
+        hi = max(1, min(4088, room))
+        counts.append(min(hi, max(1, int(np.exp(rng.uniform(0.0, np.log(hi)))))))
+    return [Blob(namespaces[int(rng.integers(32))], share_payload(rng, n)) for n in counts]
+
+
+def expected_commitment_launches(blobs) -> dict:
+    """One sha256_leaves launch per distinct chunk size of the batch and one
+    sha256_batch launch per tree level of each (log2 of the size)."""
+    from celestia_app_tpu_torch.inclusion import merkle_mountain_range_sizes
+    from celestia_app_tpu_torch.shares import sparse_shares_needed
+    from celestia_app_tpu_torch.square import subtree_width
+
+    sizes = set()
+    for b in blobs:
+        n = sparse_shares_needed(len(b.data))
+        sizes.update(merkle_mountain_range_sizes(n, subtree_width(n, 64)))
+    return {"sha256_leaf": len(sizes), "sha256": sum(s.bit_length() - 1 for s in sizes),
+            "rs_dense": 0}
+
+
+def host_breakdown(torch, fn, card: str, label: str, top: int = 8) -> None:
+    """The host functions that take the most time of their own in one call
+    of `fn` (cProfile; it slows each Python call, so the shares, not the
+    sum, are what to read)."""
+    import cProfile
+
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    prof.create_stats()
+    rows = sorted(prof.stats.items(), key=lambda kv: -kv[1][2])[:top]
+    total = sum(v[2] for v in prof.stats.values())
+    log(f"[{card}] {label} under cProfile: {total * 1e3:.3f} ms of Python; most of their own:")
+    for (path, line, name), (_, calls, own, _cum, _) in rows:
+        log(f"    {own * 1e3:9.3f} ms  {calls:6d} calls  {name} ({os.path.basename(path)}:{line})")
+
+
+def phase_commitments(torch, card: str) -> dict:
+    """create_commitments_batched on the card for one k=128 square's worth of
+    blobs: equal to the host oracle, a memo hit on the second call, four
+    threads at once, and equal to the commitments re-derived from the row
+    trees of a k=128 square the builder made of them and the card extended.
+    Returns the launches of one batch."""
+    from celestia_app_tpu_torch.da import extend_shares
+    from celestia_app_tpu_torch.inclusion import (
+        batched,
+        commitment_from_row_trees,
+        create_commitment,
+        create_commitments_batched,
+    )
+    from celestia_app_tpu_torch.kernels import _build
+    from celestia_app_tpu_torch.shares import sparse_shares_needed
+    from celestia_app_tpu_torch.square import Builder, subtree_width
+    from celestia_app_tpu_torch.tx.envelopes import BlobTx
+
+    blobs = commitment_blobs(1970)
+    shares = [sparse_shares_needed(len(b.data)) for b in blobs]
+    t0 = time.perf_counter()
+    want = [create_commitment(b) for b in blobs]
+    host_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[{card}] commitments: {len(blobs)} blobs, {sum(shares)} shares, "
+        f"{sum(len(b.data) for b in blobs) / 1e6:.3f} MB (largest {max(shares)} shares); "
+        f"host create_commitment (hashlib) {host_ms:.3f} ms for all")
+
+    def batch():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = create_commitments_batched(blobs)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    batched._COMMIT_MEMO.clear()
+    _build.reset_launches()
+    first, first_ms = batch()
+    counts = dict(_build.LAUNCHES)
+    if first != want:
+        bad = [i for i, (a, b) in enumerate(zip(first, want)) if a != b]
+        raise AssertionError(f"batched commitments differ from create_commitment at {bad[:8]}")
+    check_launches("commitment batch", counts, expected_commitment_launches(blobs))
+    before = batched.memo_stats()
+    _build.reset_launches()
+    again, hit_ms = batch()
+    after = batched.memo_stats()
+    if again != want or after["misses"] != before["misses"] or \
+            after["hits"] - before["hits"] != len(blobs) or any(_build.LAUNCHES.values()):
+        raise AssertionError(f"the second call missed the memo: {before} -> {after}, "
+                             f"launches {_build.LAUNCHES}")
+    miss_ms = []
+    for _ in range(3):
+        batched._COMMIT_MEMO.clear()
+        miss_ms.append(batch()[1])
+    log(f"[{card}] commitments == create_commitment for all {len(blobs)}; launches {counts}; "
+        f"first call {first_ms:.3f} ms, later misses {[round(t, 3) for t in miss_ms]} ms, "
+        f"memo hit {hit_ms:.3f} ms (misses +0, hits +{len(blobs)})")
+
+    def miss():
+        batched._COMMIT_MEMO.clear()
+        create_commitments_batched(blobs)
+
+    device_breakdown(torch, miss, card, f"commitments, {len(blobs)} blobs, memo miss")
+    host_breakdown(torch, miss, card, f"commitments, {len(blobs)} blobs, memo miss")
+    device_breakdown(torch, lambda: create_commitments_batched(blobs), card,
+                     f"commitments, {len(blobs)} blobs, memo hit")
+
+    # Four threads at once on overlapping windows of the set, memo empty.
+    batched._COMMIT_MEMO.clear()
+    windows = [range(t * 20, t * 20 + 60) for t in range(4)]
+    results, errors = {}, []
+
+    def run(t: int) -> None:
+        try:
+            results[t] = create_commitments_batched([blobs[i] for i in windows[t]])
+        except BaseException as e:  # raised below, in the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(t,)) for t in range(4)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    threads_ms = (time.perf_counter() - t0) * 1e3
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"threaded commitments failed: {errors}")
+    for t, w in enumerate(windows):
+        if results[t] != [want[i] for i in w]:
+            raise AssertionError(f"thread {t}: commitments differ from create_commitment")
+    log(f"[{card}] commitments from 4 threads at once (overlapping windows of 60 blobs): "
+        f"all equal, {threads_ms:.3f} ms, memo {batched.memo_stats()}")
+
+    # The square check: the builder places what fits in k=128, the card
+    # extends it, the row trees give each placed blob's commitment back.
+    rng = np.random.default_rng(128)
+    builder, placed = Builder(128), []
+    for i, b in enumerate(blobs):
+        if builder.append_blob_tx(BlobTx(rng.bytes(200), (b,))):
+            placed.append(i)
+    sq = builder.export()
+    if sq.size != 128 or 2 * len(placed) < len(blobs):
+        raise AssertionError(f"the builder placed {len(placed)} of {len(blobs)} blobs in a "
+                             f"k={sq.size} square")
+    eds = extend_shares(sq.share_bytes())
+    rows = {(p.start + i) // 128 for p in sq.placements for i in (0, p.share_count - 1)}
+    rows = range(min(rows), max(rows) + 1)
+    t0 = time.perf_counter()
+    trees = {r: eds.row_tree(r, host=True) for r in rows}
+    widths = set()
+    for p in sq.placements:
+        i = placed[p.pfb_index]
+        got = commitment_from_row_trees(trees, p.start, p.share_count, 128)
+        if got != first[i]:
+            raise AssertionError(f"blob {i} ({p.share_count} shares at {p.start}): the row "
+                                 f"trees' commitment != the batched one")
+        widths.add(subtree_width(p.share_count, 64))
+    if not {64, 128} <= widths:
+        raise AssertionError(f"no placed blob of width 64 and 128 (widths {sorted(widths)})")
+    log(f"[{card}] commitments: the builder placed {len(placed)} of {len(blobs)} blobs "
+        f"({sum(p.share_count for p in sq.placements)} shares, subtree widths "
+        f"{sorted(widths)}) in a k={sq.size} square; for every placed blob "
+        f"commitment_from_row_trees(card EDS row trees) == the batched commitment "
+        f"({(time.perf_counter() - t0) * 1e3:.3f} ms on the host for {len(rows)} rows)")
+    return counts
+
+
+class StubApp:
+    """The querier's view of the app: the square size cap."""
+
+    def max_effective_square_size(self) -> int:
+        return 128
+
+
+def querier_txs(seed: int) -> list[bytes]:
+    """24 normal txs of 100-1000 B and 12 BlobTxs of one blob each, 240-480
+    shares, under 4 namespaces: more than 4,096 shares, a k=128 square."""
+    from celestia_app_tpu_torch.shares import Blob, Namespace
+    from celestia_app_tpu_torch.tx.envelopes import BlobTx
+
+    rng = np.random.default_rng(seed)
+    namespaces = [Namespace.v0(rng.bytes(10)) for _ in range(4)]
+    txs = [rng.bytes(int(rng.integers(100, 1000))) for _ in range(24)]
+    for i in range(12):
+        blob = Blob(namespaces[i % 4], share_payload(rng, int(rng.integers(240, 481))))
+        txs.append(BlobTx(rng.bytes(int(rng.integers(150, 400))), (blob,)).marshal())
+    return txs
+
+
+def phase_querier(torch, card: str) -> dict:
+    """The ABCI proof querier on a k=128 square of txs and BlobTxs: a tx
+    inclusion proof for every tx, share proofs for a few ranges (one across
+    a row boundary), both routes of handle_query; every proof verifies
+    against the card's data root and a tampered one does not.  Returns the
+    launches of one query."""
+    import dataclasses
+    import json
+
+    from celestia_app_tpu_torch.da import extend_shares
+    from celestia_app_tpu_torch.kernels import _build
+    from celestia_app_tpu_torch.proof import querier
+    from celestia_app_tpu_torch.square import construct
+
+    txs = querier_txs(4242)
+    sq = construct(txs, 128)
+    if sq.size != 128:
+        raise AssertionError(f"the querier's block builds a k={sq.size} square, want 128")
+    _build.reset_launches()
+    root = extend_shares(sq.share_bytes()).data_root()
+    extend_counts = dict(_build.LAUNCHES)
+
+    proofs, tx_ms = [], []
+    for i in range(len(txs)):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        proofs.append(querier.query_tx_inclusion_proof(txs, i, 128))
+        tx_ms.append((time.perf_counter() - t0) * 1e3)
+        if dict(_build.LAUNCHES) != extend_counts:
+            raise AssertionError(f"tx query {i}: launches {_build.LAUNCHES}, want one "
+                                 f"extend's {extend_counts}")
+    # One-namespace ranges: txs, PFBs, and a blob's shares across a row end.
+    crossing = next(p for p in sq.placements
+                    if p.start // 128 != (p.start + p.share_count - 1) // 128)
+    edge = (crossing.start // 128 + 1) * 128
+    across = (max(crossing.start, edge - 5), min(crossing.start + crossing.share_count, edge + 7))
+    ranges = [(0, 1), (2, min(9, sq.tx_share_range[1])), sq.pfb_share_range, across]
+    share_ms = []
+    for lo, hi in ranges:
+        t0 = time.perf_counter()
+        proofs.append(querier.query_share_inclusion_proof(txs, lo, hi, 128))
+        share_ms.append((time.perf_counter() - t0) * 1e3)
+    data = json.dumps({"txs": [t.hex() for t in txs]}).encode()
+    routed = [querier.handle_query(StubApp(), f"{querier.TX_INCLUSION_ROUTE}/30", data),
+              querier.handle_query(StubApp(), f"{querier.SHARE_INCLUSION_ROUTE}/"
+                                   f"{across[0]}/{across[1]}", data)]
+    if routed != [proofs[30], proofs[len(txs) + 3]]:
+        raise AssertionError("handle_query's proofs differ from the direct queries'")
+    proofs += routed
+    if not all(p.verify(root) for p in proofs):
+        raise AssertionError("a querier proof does not verify against the data root")
+    victim = proofs[len(txs) + 3]
+    body = bytearray(victim.data[0])
+    body[200] ^= 1
+    tampered = dataclasses.replace(victim, data=(bytes(body),) + victim.data[1:])
+    if tampered.verify(root):
+        raise AssertionError("a tampered share proof verifies")
+    rows = [p.row_proof.end_row - p.row_proof.start_row for p in proofs]
+    log(f"[{card}] querier k=128: {len(txs)} tx proofs, {len(ranges)} share-range proofs "
+        f"(one across the row end at share {edge}), 2 through handle_query; all {len(proofs)} "
+        f"verify against the card's data root, the tampered one does not; rows per proof "
+        f"{min(rows)}-{max(rows)}; launches per query {extend_counts} (one extend)")
+    log(f"[{card}] querier k=128: query_tx_inclusion_proof {float(np.median(tx_ms)):.3f} ms "
+        f"per query (median of {len(tx_ms)}, {min(tx_ms):.3f}-{max(tx_ms):.3f}), "
+        f"query_share_inclusion_proof {[round(t, 3) for t in share_ms]} ms")
+    return extend_counts
+
+
+def build_bridge() -> tuple[str, float]:
+    """Compile bridge/celestia_square_bridge.cpp into the port's (git-ignored)
+    build directory, with cmake or, where it is absent, the C++ compiler
+    alone; never into the tracked bridge/build/."""
+    from celestia_app_tpu_torch.kernels import _build
+
+    out = _build.BUILD_DIR / "bridge"
+    out.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    if shutil.which("cmake"):
+        for cmd in (["cmake", "-S", "bridge", "-B", str(out)], ["cmake", "--build", str(out)]):
+            subprocess.run(cmd, check=True, capture_output=True, timeout=300)
+    else:
+        subprocess.run(["c++", "-O2", "-std=c++17", "-shared", "-fPIC", "-pthread", "-o",
+                        str(out / "libcelestia_square_bridge.so"),
+                        "bridge/celestia_square_bridge.cpp"],
+                       check=True, capture_output=True, timeout=300)
+    return str(out / "libcelestia_square_bridge.so"), time.perf_counter() - t0
+
+
+def bridge_workers() -> list[int]:
+    """Pids of this process's children that run the port's bridge worker."""
+    pids = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmdline = f.read()
+        except OSError:
+            continue
+        if ppid == os.getpid() and b"celestia_app_tpu_torch.bridge.worker" in cmdline:
+            pids.append(int(entry))
+    return pids
+
+
+@contextlib.contextmanager
+def watchdog(seconds: float, what: str):
+    """Kill the bridge worker if the block outlasts `seconds`: the C side's
+    reads have no time limit, and a dead worker makes them fail."""
+    fired = []
+
+    def fire():
+        fired.append(True)
+        for pid in bridge_workers():
+            os.kill(pid, signal.SIGKILL)
+
+    timer = threading.Timer(seconds, fire)
+    timer.start()
+    try:
+        yield
+    finally:
+        timer.cancel()
+    if fired:
+        raise AssertionError(f"{what} outlasted {seconds} s; the worker was killed")
+
+
+def phase_bridge(torch, card: str) -> dict:
+    """The C ABI with the port's worker behind it: build the bridge library,
+    start the worker through BridgeClient with warmup at k=128 and 512, round
+    trips at both sizes byte-equal to an in-process compute, a failed
+    extend, shutdown, and the worker's own report of its device and
+    launches.  Returns the worker's launch counts."""
+    from celestia_app_tpu_torch.bridge.client import BridgeClient
+    from celestia_app_tpu_torch.da import ExtendedDataSquare
+    from celestia_app_tpu_torch.kernels import _build
+
+    lib, build_s = build_bridge()
+    log(f"bridge: built {lib} in {build_s:.2f} s")
+    log_path = _build.BUILD_DIR / "bridge-worker.log"
+    reps = 3
+    construction = {"CELESTIA_RS_CONSTRUCTION": "leopard"}
+    with environment(construction), watchdog(600, "the bridge phase"):
+        # The worker inherits fd 2 at fork: point it at the log for the call.
+        sys.stderr.flush()
+        saved = os.dup(2)
+        with open(log_path, "wb") as f:
+            os.dup2(f.fileno(), 2)
+        try:
+            t0 = time.perf_counter()
+            client = BridgeClient(lib, warmup_ks=[128, 512])
+            init_s = time.perf_counter() - t0
+        finally:
+            os.dup2(saved, 2)
+            os.close(saved)
+        extends = 2  # the warmups
+        try:
+            if not client.ping():
+                raise AssertionError("bridge ping failed")
+            log(f"[{card}] bridge: cstpu_init with warmup k=128, 512 (worker start, kernels "
+                f"already built, one extend at each k) {init_s:.3f} s")
+            for k in (128, 512):
+                ods = random_square(k, seed=9000 + k)
+                trip_ms, local_ms = [], []
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    eds, rows, cols, root = client.extend_and_dah(ods)
+                    trip_ms.append((time.perf_counter() - t0) * 1e3)
+                    extends += 1
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    local = ExtendedDataSquare.compute(ods, "leopard")
+                    want = (local.squared(), b"".join(local.row_roots()),
+                            b"".join(local.col_roots()), local.data_root())
+                    local_ms.append((time.perf_counter() - t0) * 1e3)
+                    if not (np.array_equal(eds, want[0]) and rows.tobytes() == want[1]
+                            and cols.tobytes() == want[2] and root == want[3]):
+                        raise AssertionError(f"bridge k={k}: EDS or roots != in-process compute")
+                moved = (k * k + 4 * k * k) * 512 / 1e6
+                trip, here = float(np.median(trip_ms)), float(np.median(local_ms))
+                log(f"[{card}] bridge k={k} leopard: round trip {trip:.3f} ms (median of "
+                    f"{[round(t, 3) for t in trip_ms]}), in-process compute + copy back "
+                    f"{here:.3f} ms ({[round(t, 3) for t in local_ms]}); the rest, "
+                    f"{trip - here:.3f} ms, is the pipe and the worker's Python for "
+                    f"{moved:.1f} MB ({k * k * 512 / 1e6:.1f} in, {4 * k * k * 512 / 1e6:.1f} "
+                    f"out); EDS, row and column roots and data root == in-process")
+            try:
+                client.extend_and_dah(np.zeros((3, 3, 512), dtype=np.uint8))
+            except RuntimeError as e:
+                log(f"bridge: a k=3 square answers status 1: RuntimeError({e})")
+            else:
+                raise AssertionError("bridge: a k=3 square did not fail")
+            if not client.ping():
+                raise AssertionError("bridge ping failed after the failed extend")
+        finally:
+            client.shutdown()
+    text = log_path.read_text()
+    line = next((x for x in text.splitlines() if x.startswith("bridge worker exit: ")), None)
+    if line is None:
+        raise AssertionError(f"the worker wrote no exit report:\n{text[-2000:]}")
+    report = json.loads(line.removeprefix("bridge worker exit: "))
+    want_launches = {"rs_dense": 2 * extends, "sha256_leaf": extends, "sha256": None}
+    if report["device"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"the worker ran on {report['device']!r}")
+    check_launches("bridge worker", report["launches"], want_launches)
+    if "invalid square size 3" not in text:
+        raise AssertionError("the worker's stderr lacks the failed extend's cause")
+    log(f"[{card}] bridge worker stderr: {line}")
+    return report["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -1300,6 +1733,14 @@ def main() -> int:
     del eds
     phase_stream(torch, card)
     phase_done("stream")
+    commit_counts = phase_commitments(torch, card)
+    phase_done("commitments")
+    query_counts = phase_querier(torch, card)
+    phase_done("querier")
+    bridge_counts = phase_bridge(torch, card)
+    phase_done("bridge")
+    log(f"launches: per commitment batch {commit_counts}; per proof query {query_counts}; "
+        f"in the bridge worker over its run {bridge_counts}")
 
     # Each kernel's launches on the k=512 path that runs it: the column
     # phase's kernel names the path, the hashing kernels run on every path.

@@ -8,6 +8,7 @@ shapes.  On a card: `python -m pytest tests/test_torch_cuda.py -m cuda`.
 from __future__ import annotations
 
 import hashlib
+import os
 
 import numpy as np
 import pytest
@@ -378,3 +379,85 @@ def test_speculation_on_card(cuda, monkeypatch):
     other = ExtendedDataSquare.compute(b)
     assert not sp.pending()
     assert other.data_root() == ExtendedDataSquare.compute(b, device="cpu").data_root()
+
+
+def test_batched_commitments_on_card_equal_host(cuda):
+    """One k=128 square's worth of blobs (a blob of each subtree width 1 to
+    128, a 1.97 MB one, random ones): the batched commitments on the card
+    equal the host oracle, one sha256_leaves launch per chunk size."""
+    from celestia_app_tpu_torch.inclusion import (
+        batched,
+        create_commitment,
+        create_commitments_batched,
+        merkle_mountain_range_sizes,
+    )
+    from celestia_app_tpu_torch.shares import Blob, Namespace
+    from celestia_app_tpu_torch.square import subtree_width
+
+    rng = np.random.default_rng(1970)
+    namespaces = [Namespace.v0(rng.bytes(10)) for _ in range(16)]
+    counts = [1, 100, 200, 400, 800, 1600, 4088, 5000]
+    counts += [int(v) for v in np.exp(rng.uniform(0, np.log(300), 80)).astype(int) + 1]
+    blobs = [Blob(namespaces[i % 16], rng.bytes(478 + 482 * (n - 1) - int(rng.integers(0, 400))))
+             for i, n in enumerate(counts)]
+    sizes = {s for b in blobs for n in [b.share_count()]
+             for s in merkle_mountain_range_sizes(n, subtree_width(n, 64))}
+    batched._COMMIT_MEMO.clear()
+    _build.reset_launches()
+    got = create_commitments_batched(blobs)
+    assert got == [create_commitment(b) for b in blobs]
+    assert _build.LAUNCHES["sha256_leaf"] == len(sizes) == 8
+    assert _build.LAUNCHES["sha256"] == sum(s.bit_length() - 1 for s in sizes)
+
+
+_BRIDGE_CLIENT = """
+import json, sys
+import numpy as np
+from celestia_app_tpu_torch.bridge.client import BridgeClient
+from celestia_app_tpu_torch.da import ExtendedDataSquare
+k = 128
+ods = np.random.default_rng(5).integers(0, 256, (k, k, 512), dtype=np.uint8)
+ods[:, :, :29] = 0
+client = BridgeClient(sys.argv[1], warmup_ks=[k])
+eds, rows, cols, root = client.extend_and_dah(ods)
+client.shutdown()
+want = ExtendedDataSquare.compute(ods)
+print(json.dumps({"eds": bool(np.array_equal(eds, want.squared())),
+                  "rows": rows.tobytes() == b"".join(want.row_roots()),
+                  "cols": cols.tobytes() == b"".join(want.col_roots()),
+                  "root": root == want.data_root()}))
+"""
+
+
+def test_bridge_round_trip_on_card(cuda, tmp_path):
+    """The C ABI with the port's worker on the card at k=128: the round trip
+    equals an in-process compute, and the worker reports the card and its
+    launches.  The client runs in a child process under a time limit (the C
+    side's reads have none)."""
+    import json
+    import shutil
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    lib = tmp_path / "libcelestia_square_bridge.so"
+    if shutil.which("cmake"):
+        subprocess.run(["cmake", "-S", str(root / "bridge"), "-B", str(tmp_path)], check=True,
+                       capture_output=True, timeout=300)
+        subprocess.run(["cmake", "--build", str(tmp_path)], check=True, capture_output=True,
+                       timeout=300)
+    else:
+        subprocess.run(["c++", "-O2", "-std=c++17", "-shared", "-fPIC", "-pthread", "-o",
+                        str(lib), str(root / "bridge" / "celestia_square_bridge.cpp")],
+                       check=True, capture_output=True, timeout=300)
+    env = {k: v for k, v in os.environ.items() if k != "CELESTIA_BRIDGE_DEVICE"}
+    out = subprocess.run([sys.executable, "-c", _BRIDGE_CLIENT, str(lib)], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=600, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {
+        "eds": True, "rows": True, "cols": True, "root": True}
+    line = next(x for x in out.stderr.splitlines() if x.startswith("bridge worker exit: "))
+    report = json.loads(line.removeprefix("bridge worker exit: "))
+    assert report["device"] == torch.cuda.get_device_name(0)
+    assert report["launches"]["rs_dense"] == 4  # the warmup and the extend
+    assert report["launches"]["sha256_leaf"] == 2

@@ -45,6 +45,9 @@ def test_importing_every_port_module_loads_no_jax():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert "celestia_app_tpu_torch.da.repair" in result["imported"]
     assert "celestia_app_tpu_torch.serve.verify" in result["imported"]
+    for name in ("inclusion.batched", "inclusion.commitment", "proof.querier",
+                 "bridge.worker", "bridge.client"):
+        assert f"celestia_app_tpu_torch.{name}" in result["imported"]
     assert result["forbidden"] == []
 
 
