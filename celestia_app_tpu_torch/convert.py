@@ -22,15 +22,13 @@ def pack_generator_words(G_bits: np.ndarray) -> np.ndarray:
     celestia_app_tpu/kernels/rs_xor.pack_generator_words.
     """
     Pm, nm = G_bits.shape
-    pad = (-nm) % 32
-    if pad:
-        G_bits = np.concatenate(
-            [G_bits, np.zeros((Pm, pad), dtype=G_bits.dtype)], axis=1
-        )
-    nw = (nm + pad) // 32
-    w = G_bits.reshape(Pm, nw, 32).astype(np.uint64)
-    words = (w << np.arange(32, dtype=np.uint64)).sum(axis=2)
-    return np.ascontiguousarray(words.astype(np.uint32).T)  # (NW, Pm)
+    nw = -(-nm // 32)
+    # Bits LSB first into bytes, four bytes little-endian into a word.
+    packed = np.zeros((Pm, 4 * nw), dtype=np.uint8)
+    packed[:, : -(-nm // 8)] = np.packbits(np.asarray(G_bits, dtype=np.uint8), axis=1,
+                                            bitorder="little")
+    words = packed.view("<u4")  # (Pm, NW)
+    return np.ascontiguousarray(words.T).astype(np.uint32)  # (NW, Pm)
 
 
 def codec_tensors(

@@ -2,9 +2,12 @@
 NMT roots (reference pkg/da/data_availability_header.go:65-75), computed on
 the card by the lowering that kernels/fused.pipeline_mode selects.
 
-The ODS reaches the card through device.upload (pinned staging).  Beside
-the one-square pipelines sit the batched ones of the streaming path
-(parallel/pipeline.py) and the speculative extend ($CELESTIA_PIPE_SPECULATE).
+The ODS reaches the card through device.upload (pinned staging), or, under
+the panel-streamed lowering of giant squares ($CELESTIA_PIPE_PANEL,
+kernels/panel.py), one row panel at a time from the host copy.  Beside the
+one-square pipelines sit the batched ones of the streaming path
+(parallel/pipeline.py), which stay on the materializing lowerings, and the
+speculative extend ($CELESTIA_PIPE_SPECULATE).
 
 Accessors mirror the rsmt2d surface of celestia_app_tpu/da/eds.py; they
 return host copies.  The per-line trees (`row_tree`, `col_tree`) serve the
@@ -33,11 +36,12 @@ from celestia_app_tpu_torch.constants import (
 from celestia_app_tpu_torch.device import hand_over, resolve_device, upload
 from celestia_app_tpu_torch.gf.rs import active_construction
 from celestia_app_tpu_torch.kernels import fused
-from celestia_app_tpu_torch.kernels.rs import extend_square_fn, use_xor
+from celestia_app_tpu_torch.kernels.panel import panel_count, panel_pipeline, panel_rows
+from celestia_app_tpu_torch.kernels.rs import encode_core, extend_square_fn
 from celestia_app_tpu_torch.nmt.tree import NamespacedMerkleTree
 from celestia_app_tpu_torch.trace import journal
 
-MODES = ("fused", "fused_epi", "staged", "host")
+MODES = ("fused", "fused_epi", "staged", "host", "panel")
 
 
 def leaf_namespaces(eds: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -72,30 +76,46 @@ def _pipeline(k: int, construction: str | None, device):
 
 def pipeline_for_mode(mode: str, k: int, construction: str | None = None, device=None):
     """The pipeline of one lowering: "fused", "fused_epi" (the epilogue
-    kernel), or "staged".  The port compiles nothing ahead, so "host", the
-    JAX package's eager staged floor, is the staged pipeline here."""
+    kernel), "staged", or "panel" (kernels/panel.panel_pipeline, which
+    takes the host ODS and uploads it panel by panel).  The port compiles
+    nothing ahead, so "host", the JAX package's eager staged floor, is the
+    staged pipeline here."""
     if mode not in MODES:
         raise ValueError(f"unknown pipeline mode {mode!r}; expected one of {MODES}")
     dev = resolve_device(device)
     if mode in ("staged", "host"):
         return _pipeline(k, construction, dev)
+    if mode == "panel":
+        return panel_pipeline(k, construction, device=dev)
     return fused.extend_and_dah_fn(k, construction, epilogue=(mode == "fused_epi"),
                                    device=dev)
 
 
+def _config(k: int, mode: str, device: torch.device) -> tuple:
+    """What a pipeline fixes when it is built beyond (k, construction, mode,
+    device): the RS core (kernels/rs.encode_core) and, under "panel", the
+    panel height.  Part of every pipeline cache key."""
+    return encode_core(k, device), (panel_rows(k) if mode == "panel" else 0)
+
+
 @lru_cache(maxsize=None)
-def _cached_pipeline(k: int, construction: str, xor: bool, mode: str,
+def _cached_pipeline(k: int, construction: str, config: tuple, mode: str,
                      device: torch.device):
-    # `xor` is part of the key: the RS core is fixed when the pipeline is built.
     return pipeline_for_mode(mode, k, construction, device)
 
 
 def _pipeline_and_state(k: int, construction: str, mode: str, device: torch.device):
-    """The cached pipeline of the active RS core, and "miss" when this call
-    built it (the journal's `compile` field), else "hit"."""
+    """The cached pipeline of the active configuration, and "miss" when this
+    call built it (the journal's `compile` field), else "hit"."""
     misses = _cached_pipeline.cache_info().misses
-    run = _cached_pipeline(k, construction, use_xor(), mode, device)
+    run = _cached_pipeline(k, construction, _config(k, mode, device), mode, device)
     return run, ("miss" if _cached_pipeline.cache_info().misses > misses else "hit")
+
+
+def _panel_fields(mode: str, k: int) -> dict:
+    """Journal extras of a panel-streamed dispatch: the panels it streamed
+    (celestia_app_tpu/da/eds._panel_fields without the sharded branch)."""
+    return {"panels": panel_count(k)} if mode == "panel" else {}
 
 
 # --- batched (multi-square) pipeline ----------------------------------------
@@ -131,7 +151,7 @@ def _batched_pipeline_for_mode(mode: str, k: int, batch: int,
 
 
 @lru_cache(maxsize=None)
-def _cached_batched_pipeline(k: int, construction: str, xor: bool, mode: str, batch: int,
+def _cached_batched_pipeline(k: int, construction: str, core: tuple, mode: str, batch: int,
                              device: torch.device):
     return _batched_pipeline_for_mode(mode, k, batch, construction, device)
 
@@ -139,9 +159,22 @@ def _cached_batched_pipeline(k: int, construction: str, xor: bool, mode: str, ba
 def pipeline_batched(k: int, batch: int, construction: str | None = None, device=None):
     """The cached batched pipeline of the active lowering and RS core: the
     multi-square counterpart of the pipeline `compute` runs
-    (celestia_app_tpu/da/eds.jit_pipeline_batched)."""
-    return _cached_batched_pipeline(k, construction or active_construction(), use_xor(),
-                                    fused.pipeline_mode(), batch, resolve_device(device))
+    (celestia_app_tpu/da/eds.jit_pipeline_batched).  Its lowering is
+    pipeline_mode(), never "panel": giant squares do not batch."""
+    dev = resolve_device(device)
+    return _cached_batched_pipeline(k, construction or active_construction(),
+                                    encode_core(k, dev), fused.pipeline_mode(), batch, dev)
+
+
+def _staged_input(ods, mode: str, dev: torch.device):
+    """The pipeline's input: under "panel" the ODS as it lies (a host array
+    made contiguous; the runner uploads one panel at a time), else the
+    whole square on `dev` (a host array through device.upload)."""
+    if mode == "panel":
+        return ods if isinstance(ods, torch.Tensor) else np.ascontiguousarray(ods, dtype=np.uint8)
+    if isinstance(ods, torch.Tensor):
+        return ods.to(dev)
+    return upload(np.ascontiguousarray(ods, dtype=np.uint8), dev)[0]
 
 
 def _check_square(k: int) -> None:
@@ -227,9 +260,12 @@ class ExtendedDataSquare:
                 device=None) -> "ExtendedDataSquare":
         """Extend a (k, k, 512) uint8 ODS (numpy or tensor) on `device`
         (default CUDA; a CUDA request without a card raises) through the
-        lowering $CELESTIA_PIPE_FUSED selects at this call.  With
-        $CELESTIA_PIPE_SPECULATE armed, a pending speculation of exactly
-        these bytes is claimed instead of computed again."""
+        lowering kernels/fused.pipeline_mode_for_k selects at this call
+        ($CELESTIA_PIPE_PANEL, then $CELESTIA_PIPE_FUSED).  Under "panel"
+        the runner takes the host copy and uploads it panel by panel, never
+        the whole square.  With $CELESTIA_PIPE_SPECULATE armed, a pending
+        speculation of exactly these bytes is claimed instead of computed
+        again."""
         dev = resolve_device(device)
         k = ods.shape[0]
         _check_square(k)
@@ -249,17 +285,15 @@ class ExtendedDataSquare:
             # A pending entry that did not match is the round-change
             # outcome: its square is discarded, never served.
             spec_outcome = "discard"
-        mode = fused.pipeline_mode()
+        mode = fused.pipeline_mode_for_k(k)
         run, state = _pipeline_and_state(k, construction, mode, dev)
         t0 = time.perf_counter()
-        if isinstance(ods, torch.Tensor):
-            x = ods.to(dev)
-        else:
-            x, _ = upload(np.ascontiguousarray(ods, dtype=np.uint8), dev)
+        x = _staged_input(ods, mode, dev)
         t1 = time.perf_counter()
         eds, rr, cr, droot = run(x)
         journal.record("compute", k, mode=mode, compile=state, upload_ms=(t1 - t0) * 1e3,
                        dispatch_ms=(time.perf_counter() - t1) * 1e3,
+                       **_panel_fields(mode, k),
                        **({"speculation": spec_outcome} if spec_outcome else {}))
         return cls(eds, rr, cr, droot, k)
 
@@ -387,8 +421,8 @@ class SpeculativeExtender:
             raise ValueError(f"ODS must be ({k}, {k}, {SHARE_SIZE}), got {tuple(ods.shape)}")
         construction = construction or active_construction()
         host = _host_bytes(ods)
-        mode = fused.pipeline_mode()
-        run = _cached_pipeline(k, construction, use_xor(), mode, dev)
+        mode = fused.pipeline_mode_for_k(k)
+        run = _cached_pipeline(k, construction, _config(k, mode, dev), mode, dev)
         done = None
         if dev.type == "cuda":
             stream = self._stream(dev)
@@ -396,11 +430,11 @@ class SpeculativeExtender:
             # generator upload of a pipeline built by the line above.
             stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(stream):
-                out = run(upload(host, dev)[0])
+                out = run(_staged_input(host, mode, dev))
                 done = torch.cuda.Event()
                 done.record(stream)
         else:
-            out = run(upload(host, dev)[0])
+            out = run(_staged_input(host, mode, dev))
         with self._lock:
             if self._entry is not None:
                 self.outcomes["discard"] += 1

@@ -42,11 +42,11 @@ import torch
 from celestia_app_tpu_torch.constants import SHARE_SIZE
 from celestia_app_tpu_torch.convert import bits_tensor
 from celestia_app_tpu_torch.da.dah import DataAvailabilityHeader
-from celestia_app_tpu_torch.da.eds import ExtendedDataSquare, _cached_pipeline
+from celestia_app_tpu_torch.da.eds import ExtendedDataSquare, _cached_pipeline, _config
 from celestia_app_tpu_torch.device import resolve_device, upload
 from celestia_app_tpu_torch.gf.rs import active_construction, codec_for_width
 from celestia_app_tpu_torch.kernels.fused import pipeline_mode
-from celestia_app_tpu_torch.kernels.rs import encode_axis, use_xor
+from celestia_app_tpu_torch.kernels.rs import encode_axis
 
 
 class IrrecoverableSquare(ValueError):
@@ -273,7 +273,7 @@ def repair(shares, present, dah: DataAvailabilityHeader | None = None, *,
         data = _solve_batched(data, present_host, k, construction)
 
     # Re-extend the recovered ODS: parity and the roots for the DAH check.
-    run = _cached_pipeline(k, construction, use_xor(), mode, dev)
+    run = _cached_pipeline(k, construction, _config(k, mode, dev), mode, dev)
     eds, rr, cr, droot = run(data[:k, :k])
     # Survivors are authoritative: the recomputed codeword must reproduce
     # every share present in the input (decided on the device; one bool

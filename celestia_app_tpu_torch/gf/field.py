@@ -218,23 +218,18 @@ class GF:
 
         (G_bits @ data_bits) mod 2 == bits(G gfmatmul data): the whole GF
         matmul becomes one 0/1 matmul, which is what the RS kernels run.
+        Block (i, j) is mul_bit_matrix(A[i, j]): its column b is the bits
+        of A[i, j] * 2^b, computed here for all (i, j) at once per b.
         """
         A = np.asarray(A, dtype=np.uint32)
         n, k = A.shape
         m = self.m
-        out = np.zeros((n * m, k * m), dtype=np.uint8)
-        # cache per distinct constant - generator matrices repeat values a lot
-        cache: dict[int, np.ndarray] = {}
-        for i in range(n):
-            for j in range(k):
-                c = int(A[i, j])
-                if c == 0:
-                    continue
-                M = cache.get(c)
-                if M is None:
-                    M = cache[c] = self.mul_bit_matrix(c)
-                out[i * m : (i + 1) * m, j * m : (j + 1) * m] = M
-        return out
+        out = np.empty((n, m, k, m), dtype=np.uint8)
+        for b in range(m):
+            prod = self.mul(A, 1 << b).astype(np.uint32)  # (n, k)
+            for r in range(m):
+                out[:, r, :, b] = (prod >> r) & 1
+        return out.reshape(n * m, k * m)
 
 
 @lru_cache(maxsize=None)

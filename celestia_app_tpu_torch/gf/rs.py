@@ -14,6 +14,11 @@ Construction (fully specified, deterministic - consensus-critical):
   * parity generator  G = V[k:2k] @ inv(V[0:k])  (k x k over GF);
   * GF(2^16) symbols are little-endian byte pairs within a share.
 
+G is computed as the additive-FFT encode of the identity (gf/fft.encode_fft,
+O(k^2 log k)), the same matrix the JAX package solves for by Gaussian
+elimination (O(k^3): minutes at k=2048); tests/test_torch_gf.py holds the
+two equal.
+
 Everything here is host-side numpy: the encode oracle for tests, and the
 constant matrices that the RS kernels (kernels/rs.py) consume bit-expanded.
 MDS: any k x k minor of the 2k x k Vandermonde at distinct points is
@@ -27,6 +32,7 @@ from functools import lru_cache
 
 import numpy as np
 
+from celestia_app_tpu_torch.gf.fft import encode_fft
 from celestia_app_tpu_torch.gf.field import GF, _field
 
 
@@ -69,9 +75,10 @@ class RSCodec:
         else:
             raise ValueError(f"unknown RS construction {construction!r}")
         f = self.field
-        V = f.vandermonde(points, k)  # (2k, k)
-        self._v_all = V
-        self.generator = f.matmul(V[k:], f.inv_matrix(V[:k]))  # (k, k)
+        self._v_all = f.vandermonde(points, k)  # (2k, k), for recover_matrix
+        # G = V[k:] @ inv(V[:k]): the parity of each unit data vector.
+        self.generator = encode_fft(self, np.eye(k, dtype=f.dtype))  # (k, k)
+        self._generator_bits: np.ndarray | None = None
 
     # --- symbol <-> byte packing -----------------------------------------
     def to_symbols(self, shares: np.ndarray) -> np.ndarray:
@@ -131,8 +138,13 @@ class RSCodec:
 
     # --- device lowering --------------------------------------------------
     def generator_bits(self) -> np.ndarray:
-        """Bit-expanded generator: (k*m, k*m) uint8 in {0,1}."""
-        return self.field.expand_bit_matrix(self.generator)
+        """Bit-expanded generator: (k*m, k*m) uint8 in {0,1}, built once per
+        codec (1.07 GB at k=2048) and handed out read-only."""
+        if self._generator_bits is None:
+            bits = self.field.expand_bit_matrix(self.generator)
+            bits.setflags(write=False)
+            self._generator_bits = bits
+        return self._generator_bits
 
     def extend_bits(self) -> np.ndarray:
         """Bit-expanded [I; G]: (2k*m, k*m) - one matmul yields the full

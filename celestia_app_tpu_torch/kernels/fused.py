@@ -11,7 +11,9 @@ Selection seam: $CELESTIA_PIPE_FUSED, read per call by `pipeline_mode`
 (the variable the JAX package reads too): "off" -> "staged", "epi" ->
 "fused_epi" (the column phase and the bottom half's leaf digests in one
 launch of the epilogue kernel, kernels/rs_xor.extend_leaf_digests),
-anything else -> "fused".  Every mode gives the same bytes.
+anything else -> "fused".  Per square size, $CELESTIA_PIPE_PANEL puts the
+panel-streamed lowering (kernels/panel.py) above these: `pipeline_mode_for_k`.
+Every mode gives the same bytes.
 """
 
 from __future__ import annotations
@@ -49,6 +51,21 @@ def pipeline_mode() -> str:
     """The active extend + DAH lowering.  The port has no degradation
     ladder yet, so this is the environment's choice as it stands."""
     return env_base_mode()
+
+
+def env_base_mode_for_k(k: int) -> str:
+    """The lowering the environment selects for square size k: "panel"
+    where $CELESTIA_PIPE_PANEL engages at k (kernels/panel.panel_rows),
+    else env_base_mode()."""
+    from celestia_app_tpu_torch.kernels.panel import panel_rows
+
+    return "panel" if panel_rows(k) else env_base_mode()
+
+
+def pipeline_mode_for_k(k: int) -> str:
+    """The active extend + DAH lowering for square size k: pipeline_mode()
+    with the per-k panel seam above it.  No ladder, as pipeline_mode."""
+    return env_base_mode_for_k(k)
 
 
 def leaf_namespaces(eds: torch.Tensor, k: int) -> torch.Tensor:

@@ -10,8 +10,9 @@ of (A, B, S) share bytes, so the column phase of the square extension
 consumes the row-extended top half with no transpose and its parity lands
 as the bottom rows.  The byte moves are those of
 celestia_app_tpu/kernels/rs.py:73-91; the core is the dense kernel
-(kernels/rs_dense.py) or, with $CELESTIA_RS_XOR=on, the bitsliced XOR kernel
-(kernels/rs_xor.py).
+(kernels/rs_dense.py), with $CELESTIA_RS_XOR=on the bitsliced XOR kernel
+(kernels/rs_xor.py), or the additive-FFT butterflies (kernels/fft.py)
+where `_fft_choice` picks them.
 """
 
 from __future__ import annotations
@@ -33,6 +34,34 @@ def use_xor() -> bool:
     """$CELESTIA_RS_XOR: "on" selects the bitsliced XOR encode, anything
     else the dense one (the variable the JAX package reads too)."""
     return os.environ.get("CELESTIA_RS_XOR", "off") == "on"
+
+
+def _fft_choice(k: int, device: torch.device) -> tuple[bool, bool | None]:
+    """(use_fft, force_md) for size k on `device`, the rules of
+    celestia_app_tpu/kernels/rs._fft_choice.
+
+    $CELESTIA_RS_FFT: "on" forces the FFT (force_md None: $CELESTIA_RS_FFT_MD
+    decides the lowering); "auto" (the default) picks the md FFT only on
+    the CPU at k >= 512, where the dense encode's O(k^3) products overwhelm
+    a CPU, and the dense encode everywhere else, so the card stays dense;
+    anything else is dense.  Every choice gives the same bytes."""
+    mode = os.environ.get("CELESTIA_RS_FFT", "auto")
+    if mode == "on":
+        return True, None
+    if mode == "auto" and device.type == "cpu" and k >= 512:
+        return True, True
+    return False, None
+
+
+def encode_core(k: int, device: torch.device) -> tuple:
+    """The RS core the environment selects for size k on `device`, in the
+    JAX precedence fft > xor > dense: ("fft", md), ("xor",) or ("dense",).
+    Pipelines cache on it: they fix their core when built."""
+    use_fft, force_md = _fft_choice(k, device)
+    if use_fft:
+        md = os.environ.get("CELESTIA_RS_FFT_MD") == "1" if force_md is None else force_md
+        return ("fft", md)
+    return ("xor",) if use_xor() else ("dense",)
 
 
 def _encode_with(core, data: torch.Tensor, G: torch.Tensor, m: int,
@@ -77,11 +106,22 @@ def _codec_tensors(k: int, construction: str, device: torch.device):
 def encode_fn(k: int, construction: str | None = None, device=None):
     """f(data, contract_axis) -> parity shares for square size k.
 
-    The construction and the dense/XOR choice are resolved when f is built;
-    the generator is carried to `device` once per (k, construction)."""
+    The construction and the core (encode_core) are resolved when f is
+    built; the generator is carried to `device` once per (k, construction)."""
     dev = resolve_device(device)
-    m, tensors = _codec_tensors(k, construction or active_construction(), dev)
-    if use_xor():
+    construction = construction or active_construction()
+    core = encode_core(k, dev)
+    if core[0] == "fft":
+        from celestia_app_tpu_torch.kernels.fft import encode_axis_fft
+
+        md = core[1]
+
+        def encode(data: torch.Tensor, contract_axis: int = 1) -> torch.Tensor:
+            return encode_axis_fft(data, k, construction, contract_axis, md=md)
+
+        return encode
+    m, tensors = _codec_tensors(k, construction, dev)
+    if core[0] == "xor":
         G_words = tensors["G_words"]
 
         def encode(data: torch.Tensor, contract_axis: int = 1) -> torch.Tensor:

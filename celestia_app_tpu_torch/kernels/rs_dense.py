@@ -9,7 +9,7 @@ The kernel reads and writes through TMA, which needs each row stride to be
 a multiple of 16 bytes and each base 16-byte aligned.  `tma_rows` gives a
 tensor that already is so back unchanged (the main path: codec_tensors pads
 the generator's rows once, and its column counts are multiples of 256) and
-copies any other into a zero-padded row stride.
+copies any other into a zero-padded row stride at an aligned base.
 """
 
 from __future__ import annotations
@@ -40,11 +40,13 @@ def padded_width(width: int) -> int:
 
 
 def tma_rows(t: torch.Tensor) -> torch.Tensor:
-    """A 2-D byte tensor with unit column stride and a row stride that is a
-    multiple of 16 bytes, equal to `t`: `t` itself when it is so already,
-    else a view of a copy with zero-padded rows."""
+    """A 2-D byte tensor with unit column stride, a row stride that is a
+    multiple of 16 bytes and a 16-byte aligned base, equal to `t`: `t`
+    itself when it is so already, else a view of a copy with zero-padded
+    rows (a column slice of a generator can start mid-stride)."""
     rows, width = t.shape
-    if t.stride(1) == 1 and t.stride(0) % TMA_ALIGN == 0 and t.stride(0) >= width:
+    if (t.stride(1) == 1 and t.stride(0) % TMA_ALIGN == 0 and t.stride(0) >= width
+            and t.data_ptr() % TMA_ALIGN == 0):
         return t
     buf = torch.zeros((rows, padded_width(width)), dtype=t.dtype, device=t.device)
     buf[:, :width] = t

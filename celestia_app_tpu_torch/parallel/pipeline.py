@@ -30,14 +30,19 @@ the stream can run is built, and the card synchronized once, before either
 thread starts, so no generator upload is still in flight on the caller's
 stream when a side stream reads it.
 
+Giant squares: where $CELESTIA_PIPE_PANEL engages at k (kernels/panel.py),
+the batch is forced to 1 and the uploader only copies the ODS into its
+pinned slot; the dispatcher hands the slot to the panel runner, which
+uploads one row panel at a time on the compute stream, so the card never
+holds the whole ODS beside the pipeline's working set.
+
 Every drained block writes one "stream" row to the block journal
-(trace/journal.py) with the JAX field names.
+(trace/journal.py) with the JAX field names (`panels` on panel rows).
 
 Not ported (the node integration will bring them, ROADMAP queue 1): the
 chaos seams and the upload retry, `guarded_dispatch` with its batched ->
-unbatched fall-back, the flight-recorder trigger, the gauges, and the panel
-staging of giant squares.  A fault in the port raises out of `drain()` (and
-`submit()`), and nothing falls back.
+unbatched fall-back, the flight-recorder trigger and the gauges.  A fault in
+the port raises out of `drain()` (and `submit()`), and nothing falls back.
 
 On `device="cpu"`, which the caller asks for, the slots are plain host
 memory and there are no streams or events.
@@ -59,12 +64,14 @@ from celestia_app_tpu_torch.constants import SHARE_SIZE
 from celestia_app_tpu_torch.da.eds import (
     ExtendedDataSquare,
     _check_square,
+    _panel_fields,
     _pipeline_and_state,
     pipeline_batched,
 )
-from celestia_app_tpu_torch.device import hand_over, resolve_device, upload
+from celestia_app_tpu_torch.device import _host_tensor, hand_over, resolve_device, upload
 from celestia_app_tpu_torch.gf.rs import active_construction
-from celestia_app_tpu_torch.kernels.fused import pipeline_mode
+from celestia_app_tpu_torch.kernels.fused import pipeline_mode_for_k
+from celestia_app_tpu_torch.kernels.panel import panel_rows
 from celestia_app_tpu_torch.trace import journal
 
 _SENTINEL = object()
@@ -217,10 +224,16 @@ class BlockPipeline:
         self.k = k
         self.depth = depth
         self.batch = max(1, batch if batch is not None else env_batch())
+        # Panel streaming: giant squares never coalesce (a batch would hold
+        # B whole squares), and the slot goes to the runner panel by panel.
+        self._panel = panel_rows(k)
+        if self._panel:
+            self.batch = 1
         # Bound to the construction, RS core and lowering active at
         # creation: every block it streams uses them.
         self.construction = active_construction()
-        self._mode = pipeline_mode()
+        self._mode = pipeline_mode_for_k(k)
+        self._journal_extras = _panel_fields(self._mode, k)
         single, self._compile_state = _pipeline_and_state(k, self.construction, self._mode,
                                                           self.device)
         self._pipes = {1: single}
@@ -311,9 +324,15 @@ class BlockPipeline:
                         self._staged.put(_SENTINEL)
                         return
                     continue
-                x, uploaded = upload([ods for ods, _tag, _t in items], self.device,
-                                     pinned=self._ring.host(sid), stream=self._copy_stream,
-                                     consumer=self._compute_stream)
+                if self._panel:
+                    # Staged into the pinned slot only: the runner uploads
+                    # it one panel at a time on the compute stream.
+                    x, uploaded = self._ring.host(sid), None
+                    x[0].copy_(_host_tensor(items[0][0]))
+                else:
+                    x, uploaded = upload([ods for ods, _tag, _t in items], self.device,
+                                         pinned=self._ring.host(sid), stream=self._copy_stream,
+                                         consumer=self._compute_stream)
                 t1 = time.perf_counter()
             except Exception as e:
                 self._error = e
@@ -360,9 +379,11 @@ class BlockPipeline:
 
     def _release_staged(self, sid: int, uploaded) -> None:
         """Free the slot of a batch that will not run, once its copy has
-        read it."""
+        read it (a panel runner's copies run on the compute stream)."""
         if uploaded is not None:
             uploaded.synchronize()
+        elif self._panel and self._compute_stream is not None:
+            self._compute_stream.synchronize()
         self._ring.release(sid)
 
     def _dispatch_loop(self) -> None:
@@ -405,6 +426,7 @@ class BlockPipeline:
                     meta["dispatch_ms"] = (time.perf_counter() - t1) * 1e3
                     meta["dispatch_starve_ms"] = starve_ms
                     meta["batch_size"] = n
+                    meta.update(self._journal_extras)
                 except Exception as e:
                     self._error = e
                     self._release_staged(sid, uploaded)
@@ -434,6 +456,7 @@ class BlockPipeline:
         journal.record(
             "stream", inflight.k, mode=inflight.mode, compile=self._compile_state,
             tag=str(inflight.tag), depth=self.depth, batch_size=meta.get("batch_size", 1),
+            **({"panels": meta["panels"]} if "panels" in meta else {}),
             intake_wait_ms=meta.get("intake_wait_ms", 0.0),
             upload_ms=meta.get("upload_ms", 0.0),
             upload_stall_ms=meta.get("upload_stall_ms", 0.0),

@@ -9,7 +9,9 @@ to the device and, on a first launch, the kernels compiled), the stage
 timings the path measured (`upload_ms`, `dispatch_ms`; on stream rows also
 `intake_wait_ms`, `upload_stall_ms`, `dispatch_starve_ms`, `drain_ms`),
 `batch_size` (squares coalesced into the row's launches) on stream rows,
-and the `speculation` outcome ("hit" / "discard") on compute rows.  All
+`panels` (row panels streamed, kernels/panel.py) on rows of the "panel"
+lowering, and the `speculation` outcome ("hit" / "discard") on compute
+rows.  All
 timings are host perf_counter deltas around calls the path makes anyway;
 nothing here synchronizes the device.
 

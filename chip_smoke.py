@@ -55,7 +55,17 @@ Phases, in order; any failure raises and the script exits non-zero:
              epilogue and the XOR core through the stream once each; forests
              built on the default stream while the pipeline runs, equal to
              the one-shot forests; a speculation hit and a discard; the
-             ring's swap of a pinned slot.
+             ring's swap of a pinned slot;
+ 10. commitments, 11. querier, 12. bridge: the consensus-side entry points
+             (each phase's docstring says what it checks);
+ 13. giant   k=1024 and k=2048 (GF(2^16)): the materializing fused, epi and
+             XOR lowerings and the panel-streamed one ($CELESTIA_PIPE_PANEL:
+             64-row panels, 48-row panels at k=1024, the FFT column leg):
+             one data root and one EDS per k, the roots-only twins, 64
+             parity shares per k == the host additive FFT, launches per
+             lowering as counted from the code, wall and device time and
+             peak memory per lowering, a k=1024 BlockPipeline under panel
+             mode (batch 1, 16 panels per square).
 Then one JSON line per kernel table, the card's name and power limit, and
 last the result line {"ok": true, "device": {...}}.  Needs no network and no
 argument; exits non-zero without a CUDA device.
@@ -522,10 +532,11 @@ def merged(spans) -> list[tuple[float, float]]:
     return [(a, b) for a, b in out]
 
 
-def device_breakdown(torch, fn, card: str, label: str) -> float | None:
+def device_breakdown(torch, fn, card: str, label: str) -> tuple[float, float] | None:
     """Device time by kernel over one call of `fn` (torch.profiler), and the
     share of the call's wall time in which the device was busy; returns the
-    idle share in percent (None when the profiler saw no device events)."""
+    device busy ms and the idle share in percent (None when the profiler saw
+    no device events)."""
     wall_us, spans = profiled_spans(torch, fn)
     if not spans:
         log(f"[{card}] {label}: device time not measured (the profiler saw no device events)")
@@ -539,7 +550,7 @@ def device_breakdown(torch, fn, card: str, label: str) -> float | None:
         f"{100 - 100 * busy / wall_us:.1f}%)")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"    {us / 1e3:9.3f} ms  {name[:100]}")
-    return 100 - 100 * busy / wall_us
+    return busy / 1e3, 100 - 100 * busy / wall_us
 
 
 def random_square(k: int, seed: int) -> np.ndarray:
@@ -1677,6 +1688,297 @@ def phase_bridge(torch, card: str) -> dict:
     return report["launches"]
 
 
+# --- giant squares: k=1024 and k=2048, materializing and panel-streamed ---
+
+# The square sizes of phase_giant; the first also runs the 48-row panels and
+# the stream.
+GIANT_KS = (1024, 2048)
+# The environment of each lowering of phase_giant: every seam it reads set.
+GIANT_BASE = {"CELESTIA_PIPE_FUSED": "on", "CELESTIA_RS_XOR": "off", "CELESTIA_PIPE_PANEL": "off",
+              "CELESTIA_RS_FFT": "auto", "CELESTIA_RS_FFT_MD": "0",
+              "CELESTIA_RS_CONSTRUCTION": "vandermonde"}
+GIANT_LOWERINGS = {
+    "fused": {},
+    "epi": {"CELESTIA_PIPE_FUSED": "epi"},
+    "xor": {"CELESTIA_RS_XOR": "on"},
+    "panel auto": {"CELESTIA_PIPE_PANEL": "auto"},
+    "panel 48": {"CELESTIA_PIPE_PANEL": "48"},
+    "panel auto fft": {"CELESTIA_PIPE_PANEL": "auto", "CELESTIA_RS_FFT": "on"},
+}
+
+
+def fft_parity(codec, data: np.ndarray) -> np.ndarray:
+    """(k, 512) data shares -> their k parity shares by the host additive
+    FFT (gf/fft.encode_fft, O(k log k); the generator is not used)."""
+    from celestia_app_tpu_torch.gf.fft import encode_fft
+
+    return codec.from_symbols(encode_fft(codec, codec.to_symbols(data)))
+
+
+def check_parity_fft(eds, ods: np.ndarray, codec, rng) -> int:
+    """64 parity shares of the (2k, 2k, 512) `eds` tensor against the host
+    FFT of their row or column: 22 in Q1 from 2 ODS rows, 22 in Q2 from 2
+    ODS columns, 20 in Q3 from 2 Q1 columns.  Returns the count checked."""
+    k = codec.k
+    checked = 0
+    lines = ([("Q1", ods[i], lambda p, i=i: eds[i, k + p], 11)
+              for i in rng.choice(k, 2, replace=False)]
+             + [("Q2", ods[:, j], lambda p, j=j: eds[k + p, j], 11)
+                for j in rng.choice(k, 2, replace=False)]
+             + [("Q3", eds[:k, j].cpu().numpy(), lambda p, j=j: eds[k + p, j], 10)
+                for j in k + rng.choice(k, 2, replace=False)])
+    for quadrant, data, cell, n in lines:
+        parity = fft_parity(codec, data)
+        for p in rng.choice(k, n, replace=False):
+            if not np.array_equal(cell(int(p)).cpu().numpy(), parity[p]):
+                raise AssertionError(f"{quadrant} parity share {p} != the host FFT encode")
+            checked += 1
+    return checked
+
+
+def giant_launches(k: int, lowering: str, panels: int = 0, blocks: int = 0) -> dict:
+    """Kernel launches of one extend + DAH of size k, as the code makes
+    them: sha256_batch once per tree level of each axis and of the data
+    root's tree (its leaf level included) on every lowering; per panel
+    rs_dense twice (row phase, column partial) and sha256_leaves twice (the
+    panel's leaves, its bottom rows' leaves); the FFT leg runs no rs_dense,
+    and hashes each panel's leaves and each column block's parity leaves."""
+    want = {"sha256": 2 * ((2 * k).bit_length() - 1) + (4 * k).bit_length(),
+            "rs_dense": 0, "rs_xor": 0, "rs_dense_leaf": 0, "sha256_leaf": 1}
+    if lowering == "fused":
+        want["rs_dense"] = 2
+    elif lowering == "xor":
+        want["rs_xor"] = 2
+    elif lowering == "epi":
+        want.update(rs_dense=1, rs_dense_leaf=1)
+    elif lowering.endswith("fft"):
+        want["sha256_leaf"] = panels + blocks
+    else:
+        want.update(rs_dense=2 * panels, sha256_leaf=2 * panels)
+    return want
+
+
+def giant_leg(torch, card: str, label: str, fn, want: dict, reps: int = 3) -> tuple:
+    """One lowering: a first call, `reps` timed calls (launch counters and
+    the allocator's peak reset just before the first of them), then one
+    under the profiler.  Returns (the first timed call's result, record)."""
+    from celestia_app_tpu_torch.kernels import _build
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    walls, out = [], None
+    for rep in range(reps):
+        if rep == 0:
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if rep == 0:
+            launches = dict(_build.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            out = res
+        del res
+    check_launches(label, launches, want)
+    profiled = device_breakdown(torch, fn, card, label)
+    busy, idle = profiled if profiled else (None, None)
+    rec = {"wall_ms": float(np.median(walls)), "walls": [round(w, 3) for w in walls],
+           "busy_ms": busy, "idle": idle, "peak_gb": peak / 1e9,
+           "resident_gb": resident / 1e9, "launches": launches, "first_s": first_s}
+    log(f"[{card}] {label}: wall {rec['wall_ms']:.3f} ms (median of {rec['walls']}), first "
+        f"call {first_s:.3f} s; peak allocated {peak / 1e9:.3f} GB ({(peak - resident) / 1e9:.3f} "
+        f"GB above the {resident / 1e9:.3f} GB resident before it); launches {launches} "
+        f"(== {want})")
+    return out, rec
+
+
+def phase_giant(torch, card: str) -> dict:
+    """Giant squares on the card (GF(2^16), vandermonde), at k=1024 and 2048.
+
+    k=1024: the materializing fused, epi and XOR lowerings and the panel
+    lowering at 64-row panels, 48-row panels (a short last panel) and
+    64-row panels on the FFT leg: one data root and one EDS, the roots-only
+    twin's roots too; 64 parity shares == the host FFT encode; launches
+    per lowering as giant_launches counts them; BlockPipeline under panel
+    auto (4 squares, depth 2, batch asked 4): roots == one-shot compute,
+    journal rows of batch 1 and 16 panels.  k=2048: fused, epi, XOR, panel
+    auto and the panel FFT leg (column-blocked), one root, 64 shares ==
+    the host FFT.  Beside them: the generator's host build, wall and
+    device time, peak memory per lowering, the column phase dense against
+    column-blocked FFT, the panel column partial's layout moves and XOR
+    against its rs_dense launch, and rs_dense == its plain version on
+    column slices of the giant shapes.  Returns the records."""
+    from celestia_app_tpu_torch.da import ExtendedDataSquare
+    from celestia_app_tpu_torch.device import resolve_device
+    from celestia_app_tpu_torch.gf.rs import codec_for_width
+    from celestia_app_tpu_torch.kernels import _build, panel, rs_dense
+    from celestia_app_tpu_torch.kernels.fft import col_block_encode_fn
+    from celestia_app_tpu_torch.kernels.rs import _codec_tensors, encode_axis, encode_fn
+    from celestia_app_tpu_torch.parallel import stream_blocks
+    from celestia_app_tpu_torch.trace import journal
+
+    dev = resolve_device(None)
+    records = {}
+    for k in GIANT_KS:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        codec = codec_for_width(k, "vandermonde")
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        g_bits = codec.generator_bits()
+        bits_s = time.perf_counter() - t0
+        log(f"giant k={k}: host generator (FFT encode of the identity) {gen_s:.3f} s, "
+            f"bit expansion {bits_s:.3f} s ({g_bits.nbytes / 1e9:.3f} GB)")
+        records[k] = {"generator_s": gen_s, "bits_s": bits_s}
+        ods = random_square(k, seed=k + 7)
+        rows = panel._AUTO_PANEL_ROWS
+        n_panels = {"panel auto": k // rows, "panel 48": -(-k // 48),
+                    "panel auto fft": k // rows}
+        lowerings = list(GIANT_LOWERINGS) if k == GIANT_KS[0] else \
+            ["fused", "epi", "xor", "panel auto", "panel auto fft"]
+        ref = None
+        for name in lowerings:
+            env = {**GIANT_BASE, **GIANT_LOWERINGS[name]}
+            want = giant_launches(k, name, n_panels.get(name, 0),
+                                  -(-2 * k // min(2 * rows, 2 * k)))
+
+            def run():
+                e = ExtendedDataSquare.compute(ods)
+                e.data_root()
+                return e
+
+            with environment(env):
+                eds, rec = giant_leg(torch, card, f"giant k={k} {name}", run, want)
+                if name.startswith("panel"):
+                    row = journal.rows("compute")[-1]
+                    if row["mode"] != "panel" or row["panels"] != n_panels[name]:
+                        raise AssertionError(f"giant k={k} {name}: journal row {row}")
+                    twin_run = panel.panel_pipeline(k, roots_only=True)
+                    torch.cuda.synchronize()
+                    resident = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    _build.reset_launches()
+                    t0 = time.perf_counter()
+                    twin = twin_run(ods)
+                    twin[2].cpu()
+                    twin_ms = (time.perf_counter() - t0) * 1e3
+                    twin_peak = torch.cuda.max_memory_allocated() - resident
+                    check_launches(f"giant k={k} {name} roots only", dict(_build.LAUNCHES), want)
+                    if not all(torch.equal(a, b) for a, b in zip(
+                            twin, (eds._row_roots, eds._col_roots, eds._data_root))):
+                        raise AssertionError(f"giant k={k} {name}: roots-only twin != its roots")
+                    rec.update(twin_ms=twin_ms, twin_gb=twin_peak / 1e9)
+                    log(f"[{card}] giant k={k} {name} roots only: {twin_ms:.3f} ms, peak "
+                        f"{twin_peak / 1e9:.3f} GB above the resident; roots == the EDS's")
+                    del twin
+            records[k][name] = rec
+            if ref is None:
+                ref = eds
+                checked = check_parity_fft(ref._eds, ods, codec, np.random.default_rng(k))
+                log(f"[{card}] giant k={k}: {checked} Q1/Q2/Q3 parity shares of the fused EDS "
+                    f"== the host FFT encode of their row or column")
+            elif not (torch.equal(eds._eds, ref._eds) and torch.equal(eds._row_roots, ref._row_roots)
+                      and torch.equal(eds._col_roots, ref._col_roots)
+                      and torch.equal(eds._data_root, ref._data_root)):
+                raise AssertionError(f"giant k={k} {name}: EDS or roots != the fused lowering's")
+            del eds
+        log(f"[{card}] giant k={k}: data root {ref.data_root().hex()} and EDS equal on "
+            f"{lowerings} (+ the roots-only twins of the panel lowerings)")
+
+        # The column phase, dense against the column-blocked FFT of the
+        # panel path's FFT leg, on the fused EDS's top half.
+        top = ref._eds[:k]
+        with environment(GIANT_BASE):
+            dense = encode_fn(k, "vandermonde")
+            block = col_block_encode_fn(k, "vandermonde", md=False)
+            width = min(2 * rows, 2 * k)
+            dense_ms = cuda_ms(torch, lambda: dense(top, 0), reps=1)
+            fft_ms = cuda_ms(torch, lambda: [block(top[:, c:c + width])
+                                             for c in range(0, 2 * k, width)], reps=1)
+            if not torch.equal(block(top[:, :width]), ref._eds[k:, :width]):
+                raise AssertionError(f"giant k={k}: a column block's FFT != the EDS")
+        records[k]["col_dense_ms"], records[k]["col_fft_ms"] = dense_ms, fft_ms
+        log(f"[{card}] giant k={k}: column phase on the card, dense (rs_dense) {dense_ms:.3f} ms "
+            f"against the additive FFT in blocks of {width} columns (float16 bmm) {fft_ms:.3f} ms")
+
+        # The panel column partial of one 64-row panel: its rs_dense launch,
+        # the layout moves around it, and the XOR into the accumulator.
+        m = codec.field.m
+        bps = m // 8
+        bounds = panel.panel_bounds(k, rows)
+        g = panel._col_generator_slices(k, "vandermonde", bounds, dev)[0]
+        ext = ref._eds[:rows]
+        planes = ext.reshape(rows, 2 * k, 512 // bps, bps).movedim(3, 1)
+        planes = planes.reshape(rows, bps, -1).contiguous()
+        part = encode_axis(ext, g, m, contract_axis=0)
+        acc = torch.zeros_like(part)
+        kernel_ms = cuda_ms(torch, lambda: rs_dense.mod2_matmul_planes(g, planes, m), reps=3)
+        part_ms = cuda_ms(torch, lambda: encode_axis(ext, g, m, contract_axis=0), reps=3)
+        xor_ms = cuda_ms(torch, lambda: acc.bitwise_xor_(part), reps=3)
+        n = len(bounds)
+        records[k]["partial"] = {"kernel_ms": kernel_ms, "partial_ms": part_ms, "xor_ms": xor_ms,
+                                 "panels": n}
+        log(f"[{card}] giant k={k}: one {rows}-row panel's column partial: rs_dense "
+            f"{kernel_ms:.3f} ms, encode_axis (rs_dense + layout moves) {part_ms:.3f} ms, XOR "
+            f"into the accumulator {xor_ms:.3f} ms; per square ({n} panels) the moves + XOR "
+            f"{n * (part_ms - kernel_ms + xor_ms):.3f} ms; partial product {part.nbytes / 1e9:.3f} "
+            f"GB")
+        # rs_dense == its plain version on column slices of the two giant
+        # shapes (the plain int32 product of the whole is too large).
+        cols = 4096
+        G = _codec_tensors(k, "vandermonde", dev)[1]["G_bits"]
+        row_planes = torch.from_numpy(
+            ods[:16].transpose(1, 0, 2).reshape(k, 16, 512 // bps, bps))
+        row_planes = row_planes.to(dev).movedim(3, 1).reshape(k, bps, -1)[..., :cols]
+        row_planes = row_planes.contiguous()
+        for label, gm, x in (("column partial", g, planes[..., :cols].contiguous()),
+                             ("row phase", G, row_planes)):
+            got = rs_dense.mod2_matmul_planes(gm, x, m)
+            e = max_abs_err(got, rs_dense.mod2_matmul_planes_plain(gm, x, m))
+            if e:
+                raise AssertionError(f"giant k={k}: rs_dense {label} != plain (max err {e})")
+            log(f"giant k={k}: rs_dense == plain on the {label} shape G {tuple(gm.shape)}, "
+                f"x {tuple(x.shape)} (first {cols} columns)")
+        del part, acc, planes, ext, top, g, G, row_planes
+
+        if k == GIANT_KS[0]:
+            with environment({**GIANT_BASE, "CELESTIA_PIPE_PANEL": "auto"}):
+                blocks = [(i, random_square(k, seed=60 + i)) for i in range(4)]
+                want_roots = [ExtendedDataSquare.compute(o).data_root() for _, o in blocks]
+                before = len(journal.rows("stream"))
+                _build.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = [(t, e.data_root()) for t, e in stream_blocks(iter(blocks), k, depth=2,
+                                                                     batch=4)]
+                wall = (time.perf_counter() - t0) * 1e3
+                stream_rows = journal.rows("stream")[before:]
+                if got != list(zip(range(4), want_roots)):
+                    raise AssertionError("giant stream: roots != one-shot compute")
+                if [(r["batch_size"], r["panels"], r["mode"]) for r in stream_rows] != \
+                        [(1, k // rows, "panel")] * 4:
+                    raise AssertionError(f"giant stream: journal rows {stream_rows}")
+                check_launches("giant stream", dict(_build.LAUNCHES),
+                               {n: 4 * c for n, c in
+                                giant_launches(k, "panel auto", k // rows).items()})
+                med = {name: round(float(np.median([r[name] for r in stream_rows])), 3)
+                       for name in STREAM_STAGES}
+                records[k]["stream_ms"] = wall
+                log(f"[{card}] giant stream k={k} panel auto, depth 2, batch asked 4, 4 squares: "
+                    f"roots == one-shot compute; journal rows batch 1, {k // rows} panels; wall "
+                    f"{wall:.3f} ms ({wall / 4:.3f} ms per square); journal medians {med}")
+                del blocks
+        del ref, ods
+        torch.cuda.empty_cache()
+    log(f"giant records: {json.dumps(records)}")
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -1739,6 +2041,8 @@ def main() -> int:
     phase_done("querier")
     bridge_counts = phase_bridge(torch, card)
     phase_done("bridge")
+    phase_giant(torch, card)
+    phase_done("giant")
     log(f"launches: per commitment batch {commit_counts}; per proof query {query_counts}; "
         f"in the bridge worker over its run {bridge_counts}")
 

@@ -461,3 +461,102 @@ def test_bridge_round_trip_on_card(cuda, tmp_path):
     assert report["device"] == torch.cuda.get_device_name(0)
     assert report["launches"]["rs_dense"] == 4  # the warmup and the extend
     assert report["launches"]["sha256_leaf"] == 2
+
+
+# --- giant squares: the panel-streamed lowering and the additive FFT --------
+
+
+def _panel_square(k: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    ods = rng.integers(0, 256, (k, k, 512), dtype=np.uint8)
+    ods[..., 0] = 0
+    return ods
+
+
+@pytest.mark.parametrize("construction", ["vandermonde", "leopard"])
+@pytest.mark.parametrize("rows", [48, 7, 1])
+@pytest.mark.parametrize("k", [64, 128])
+def test_panel_on_card_equals_materializing(cuda, k, rows, construction, monkeypatch):
+    """The panel lowering on the card (device=None: the card) against the
+    materializing fused pipeline, EDS and roots, with two rs_dense and two
+    sha256_leaves launches per panel; the roots-only twin's roots too."""
+    from celestia_app_tpu_torch.da import ExtendedDataSquare
+    from celestia_app_tpu_torch.kernels import panel
+
+    ods = _panel_square(k, seed=k + rows)
+    monkeypatch.setenv("CELESTIA_PIPE_PANEL", "off")
+    ref = ExtendedDataSquare.compute(ods, construction)
+    monkeypatch.setenv("CELESTIA_PIPE_PANEL", str(rows))
+    n = -(-k // rows)
+    _build.reset_launches()
+    got = ExtendedDataSquare.compute(ods, construction)
+    assert torch.equal(got._eds, ref._eds)
+    assert got.data_root() == ref.data_root() and got.row_roots() == ref.row_roots()
+    assert _build.LAUNCHES["rs_dense"] == 2 * n and _build.LAUNCHES["sha256_leaf"] == 2 * n
+    roots = panel.panel_pipeline(k, construction, roots_only=True)(ods)
+    assert torch.equal(roots[2], ref._data_root) and torch.equal(roots[0], ref._row_roots)
+
+
+@pytest.mark.parametrize("k", [64, 128])
+def test_panel_generator_slices_at_odd_rows_m8(cuda, k):
+    """At m=8 (leopard, k <= 128) a panel starting on an odd row starts its
+    generator columns 8 bytes into a 16-byte row: the raw view goes through
+    rs_dense.tma_rows' copy, the cached slice as it is; both == plain."""
+    from celestia_app_tpu_torch.kernels import panel
+    from celestia_app_tpu_torch.kernels.rs import _codec_tensors, encode_axis
+
+    m, tensors = _codec_tensors(k, "leopard", cuda)
+    assert m == 8
+    G = tensors["G_bits"]
+    bounds = panel.panel_bounds(k, 7)
+    slices = panel._col_generator_slices(k, "leopard", bounds, cuda)
+    rng = np.random.default_rng(k)
+    odd = [(b, g) for b, g in zip(bounds, slices) if b[0] % 2]
+    assert odd
+    for (r0, r1), g in odd[:3]:
+        ext = torch.from_numpy(rng.integers(0, 256, (r1 - r0, 2 * k, 512), dtype=np.uint8))
+        view = G[:, r0 * m:r1 * m]
+        want = encode_axis(ext, view.cpu(), m, contract_axis=0)
+        assert torch.equal(encode_axis(ext.to(cuda), view, m, contract_axis=0).cpu(), want)
+        assert torch.equal(encode_axis(ext.to(cuda), g, m, contract_axis=0).cpu(), want)
+
+
+@pytest.mark.parametrize("md", [False, True])
+@pytest.mark.parametrize("construction", ["vandermonde", "leopard"])
+@pytest.mark.parametrize("k", [64, 512])
+def test_fft_on_card_equals_dense(cuda, k, construction, md):
+    """The additive FFT's float16 group products on the card == the dense
+    rs_dense encode, on both axes (at k=512 the column phase in blocks)."""
+    from celestia_app_tpu_torch.kernels.fft import col_block_encode_fn, encode_axis_fft
+    from celestia_app_tpu_torch.kernels.rs import encode_fn
+
+    rng = np.random.default_rng(k)
+    dense = encode_fn(k, construction)
+    ods = torch.from_numpy(rng.integers(0, 256, (k, k, 512), dtype=np.uint8)).to(cuda)
+    assert torch.equal(encode_axis_fft(ods, k, construction, 1, md=md), dense(ods, 1))
+    top = torch.cat([ods, dense(ods, 1)], dim=1)
+    want = dense(top, 0)
+    block = col_block_encode_fn(k, construction, md=md)
+    for c0 in range(0, 2 * k, 128):
+        assert torch.equal(block(top[:, c0:c0 + 128]), want[:, c0:c0 + 128])
+
+
+def test_panel_fft_leg_and_stream_on_card(cuda, monkeypatch):
+    """Under $CELESTIA_RS_FFT=on the panel lowering runs no rs_dense; a
+    stream under panel mode runs batch 1 and equals one-shot computes."""
+    from celestia_app_tpu_torch.da import ExtendedDataSquare
+    from celestia_app_tpu_torch.parallel import stream_blocks
+
+    k = 128
+    blocks = [(i, _panel_square(k, seed=300 + i)) for i in range(4)]
+    monkeypatch.setenv("CELESTIA_PIPE_PANEL", "off")
+    want = [ExtendedDataSquare.compute(ods) for _, ods in blocks]
+    monkeypatch.setenv("CELESTIA_PIPE_PANEL", "48")
+    monkeypatch.setenv("CELESTIA_RS_FFT", "on")
+    _build.reset_launches()
+    got = ExtendedDataSquare.compute(blocks[0][1])
+    assert torch.equal(got._eds, want[0]._eds) and _build.LAUNCHES["rs_dense"] == 0
+    monkeypatch.setenv("CELESTIA_RS_FFT", "auto")
+    out = list(stream_blocks(iter(blocks), k, depth=2, batch=4))
+    for (_, e), ref in zip(out, want):
+        assert torch.equal(e._eds, ref._eds) and e.data_root() == ref.data_root()

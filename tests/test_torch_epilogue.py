@@ -114,7 +114,7 @@ def test_pipeline_for_mode_checks_its_mode():
     for out in outs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(out, outs[0]))
     with pytest.raises(ValueError, match="unknown pipeline mode"):
-        port_eds.pipeline_for_mode("panel", k, "vandermonde", "cpu")
+        port_eds.pipeline_for_mode("sharded_panel", k, "vandermonde", "cpu")
 
 
 def test_bottom_leaf_fn_needs_the_seated_encode():

@@ -84,3 +84,60 @@ def test_active_construction_reads_the_same_variable(monkeypatch):
     assert codec_for_width(4).construction == "leopard"
     with pytest.raises(ValueError):
         RSCodec(3)
+
+
+@pytest.mark.parametrize("construction", ["vandermonde", "leopard"])
+@pytest.mark.parametrize("k", [4, 64, 256])
+def test_fft_built_generator_equals_the_gaussian_solve(k, construction):
+    """The port builds G as the FFT encode of the identity; the JAX package
+    solves V[k:] @ inv(V[:k]) by Gaussian elimination.  Same matrix, the
+    GF(2^16) regime (k=256) included."""
+    ours = RSCodec(k, construction)
+    ref = JaxRSCodec(k, construction)
+    assert ours.generator.dtype == ref.generator.dtype
+    assert np.array_equal(ours.generator, ref.generator)
+    assert np.array_equal(ours._v_all, ref._v_all)
+
+
+@pytest.mark.parametrize("k", [512, 2048])
+def test_giant_vandermonde_generator_has_its_closed_form(k):
+    """With data at points 0..k-1 and parity at k..2k-1, Lagrange
+    interpolation gives G[p, i] = C / ((k + p) ^ i) with one constant
+    C = prod(k..2k-1) / prod(1..k-1) over GF(2^16): an oracle independent of
+    both the FFT and the Gaussian solve, cheap at the giant sizes."""
+    codec = codec_for_width(k, "vandermonde")
+    f = codec.field
+    log = f.log.astype(np.int64)
+    n1 = f.order - 1
+    log_c = (log[np.arange(k, 2 * k)].sum() - log[np.arange(1, k)].sum()) % n1
+    pts = (k + np.arange(k))[:, None] ^ np.arange(k)[None, :]  # (k + p) ^ i, never 0
+    want = f.exp[(log_c - log[pts]) % n1].astype(f.dtype)
+    assert np.array_equal(codec.generator, want)
+
+
+@pytest.mark.parametrize("m", [8, 16])
+def test_expand_bit_matrix_equals_jax_package(m):
+    rng = np.random.default_rng(m + 1)
+    A = rng.integers(0, 1 << m, (6, 9))
+    A[0, :3] = 0
+    ours = field._field(m).expand_bit_matrix(A)
+    assert ours.dtype == np.uint8
+    assert np.array_equal(ours, jax_field._field(m).expand_bit_matrix(A))
+
+
+def test_generator_bits_built_once_and_read_only():
+    codec = RSCodec(8, "leopard")
+    bits = codec.generator_bits()
+    assert codec.generator_bits() is bits and not bits.flags.writeable
+
+
+@pytest.mark.parametrize("Pm,nm", [(8, 8), (24, 40), (136, 264), (256, 2048)])
+def test_pack_generator_words_equal_jax_package(Pm, nm):
+    from celestia_app_tpu.kernels.rs_xor import pack_generator_words as jax_pack
+    from celestia_app_tpu_torch.convert import pack_generator_words
+
+    G = np.random.default_rng(Pm + nm).integers(0, 2, (Pm, nm)).astype(np.uint8)
+    ours = pack_generator_words(G)
+    ref = np.asarray(jax_pack(G))
+    assert ours.dtype == np.uint32 and ours.shape == ref.shape
+    assert np.array_equal(ours, ref)
