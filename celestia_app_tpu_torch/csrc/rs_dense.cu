@@ -101,14 +101,9 @@ extern "C" int rs_dense_mod2(const void* G, long long g_stride, const void* x, l
     rc = make_map(&out_map, out, cols, Pm / 8, out_stride, TN / 2, TM / 8, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (rc != 0) return rc;
 
-  static int sms = 0;
-  if (sms == 0) {
-    const int err = prepare(rs_dense_kernel, SMEM_BYTES, &sms);
-    if (err != 0) {
-      sms = 0;
-      return err;
-    }
-  }
+  int sms = 0;
+  const int err = prepare(reinterpret_cast<const void*>(rs_dense_kernel), SMEM_BYTES, &sms);
+  if (err != 0) return err;
   const int m_tiles = (Pm + TM - 1) / TM;
   const int n_tiles = static_cast<int>((cols + TN - 1) / TN);
   const long long tiles = static_cast<long long>(m_tiles) * n_tiles;

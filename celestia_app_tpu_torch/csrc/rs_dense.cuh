@@ -81,6 +81,10 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 
+#include <map>
+#include <mutex>
+#include <utility>
+
 namespace rs_dense {
 
 constexpr int TM = 256;      // generator bit-rows per tile (wgmma n256)
@@ -431,15 +435,32 @@ inline int make_g_map(CUtensorMap* map, const void* G, long long g_stride, int P
   return make_map(map, G, nm, Pm, g_stride, BK, TM, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-// Sets the kernel's dynamic shared memory once; the card's SM count.
-// Returns a cudaError_t.
-template <class Kernel>
-int prepare(Kernel kernel, int smem, int* sms) {
+// Sets the kernel's dynamic shared memory attribute on the current device
+// the first time the kernel launches there, and gives that device's SM
+// count.  The attribute is per device (cudaFuncSetAttribute applies to the
+// current one), so the set-up is kept per (kernel, device ordinal), under a
+// lock: launches on several cards, from several threads, each find their
+// own device prepared.  Returns a cudaError_t.
+inline int prepare(const void* kernel, int smem, int* sms) {
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, int> prepared;  // -> SM count
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_pair(kernel, dev);
+  const auto it = prepared.find(key);
+  if (it != prepared.end()) {
+    *sms = it->second;
+    return 0;
+  }
+  int count = 0;
+  err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  return static_cast<int>(err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  prepared.emplace(key, count);
+  *sms = count;
+  return 0;
 }
 
 }  // namespace rs_dense

@@ -231,14 +231,9 @@ int launch(const void* G, long long g_stride, const void* x, long long x_stride,
     rc = make_map(&x_map, x, static_cast<uint64_t>(n2) * Epi::kNsym * XB, nm / (8 * XB), x_stride,
                   TN * XB, BK / (8 * XB), CU_TENSOR_MAP_SWIZZLE_NONE);
   if (rc != 0) return rc;
-  static int sms = 0;
-  if (sms == 0) {
-    const int err = prepare(rs_dense_leaf_kernel<M>, SMEM, &sms);
-    if (err != 0) {
-      sms = 0;
-      return err;
-    }
-  }
+  int sms = 0;
+  const int err = prepare(reinterpret_cast<const void*>(rs_dense_leaf_kernel<M>), SMEM, &sms);
+  if (err != 0) return err;
   const int m_tiles = (Pm + TM - 1) / TM;
   const long long items = static_cast<long long>(m_tiles) * n2;
   const int grid = static_cast<int>(items < sms ? items : sms);

@@ -41,7 +41,7 @@ from celestia_app_tpu_torch.kernels.rs import encode_core, extend_square_fn
 from celestia_app_tpu_torch.nmt.tree import NamespacedMerkleTree
 from celestia_app_tpu_torch.trace import journal
 
-MODES = ("fused", "fused_epi", "staged", "host", "panel")
+MODES = ("fused", "fused_epi", "staged", "host", "panel", "sharded_panel")
 
 
 def leaf_namespaces(eds: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -76,10 +76,12 @@ def _pipeline(k: int, construction: str | None, device):
 
 def pipeline_for_mode(mode: str, k: int, construction: str | None = None, device=None):
     """The pipeline of one lowering: "fused", "fused_epi" (the epilogue
-    kernel), "staged", or "panel" (kernels/panel.panel_pipeline, which
-    takes the host ODS and uploads it panel by panel).  The port compiles
-    nothing ahead, so "host", the JAX package's eager staged floor, is the
-    staged pipeline here."""
+    kernel), "staged", "panel" (kernels/panel.panel_pipeline, which takes
+    the host ODS and uploads it panel by panel) or "sharded_panel"
+    (kernels/panel_sharded.sharded_panel_pipeline: the same over the
+    $CELESTIA_EXTEND_SHARDS mesh, its EDS a parallel/mesh.RowSharded).  The
+    port compiles nothing ahead, so "host", the JAX package's eager staged
+    floor, is the staged pipeline here."""
     if mode not in MODES:
         raise ValueError(f"unknown pipeline mode {mode!r}; expected one of {MODES}")
     dev = resolve_device(device)
@@ -87,15 +89,26 @@ def pipeline_for_mode(mode: str, k: int, construction: str | None = None, device
         return _pipeline(k, construction, dev)
     if mode == "panel":
         return panel_pipeline(k, construction, device=dev)
+    if mode == "sharded_panel":
+        from celestia_app_tpu_torch.kernels.panel_sharded import sharded_panel_pipeline
+
+        return sharded_panel_pipeline(k, construction, device=dev)
     return fused.extend_and_dah_fn(k, construction, epilogue=(mode == "fused_epi"),
                                    device=dev)
 
 
 def _config(k: int, mode: str, device: torch.device) -> tuple:
     """What a pipeline fixes when it is built beyond (k, construction, mode,
-    device): the RS core (kernels/rs.encode_core) and, under "panel", the
-    panel height.  Part of every pipeline cache key."""
-    return encode_core(k, device), (panel_rows(k) if mode == "panel" else 0)
+    device): the RS core (kernels/rs.encode_core), under "panel" and
+    "sharded_panel" the panel height, under "sharded_panel" the shard count.
+    Part of every pipeline cache key."""
+    shards = 0
+    if mode == "sharded_panel":
+        from celestia_app_tpu_torch.kernels.panel_sharded import shards_for_k
+
+        shards = shards_for_k(k, device)
+    return (encode_core(k, device), panel_rows(k) if mode in ("panel", "sharded_panel") else 0,
+            shards)
 
 
 @lru_cache(maxsize=None)
@@ -112,9 +125,17 @@ def _pipeline_and_state(k: int, construction: str, mode: str, device: torch.devi
     return run, ("miss" if _cached_pipeline.cache_info().misses > misses else "hit")
 
 
-def _panel_fields(mode: str, k: int) -> dict:
-    """Journal extras of a panel-streamed dispatch: the panels it streamed
-    (celestia_app_tpu/da/eds._panel_fields without the sharded branch)."""
+def _panel_fields(mode: str, k: int, device=None) -> dict:
+    """Journal extras of a panel-streamed dispatch: the panels it streamed,
+    and under "sharded_panel" the panel steps per shard and the mesh width
+    `shards` (celestia_app_tpu/da/eds._panel_fields)."""
+    if mode == "sharded_panel":
+        from celestia_app_tpu_torch.kernels.panel_sharded import (
+            sharded_panel_count,
+            shards_for_k,
+        )
+
+        return {"panels": sharded_panel_count(k, device), "shards": shards_for_k(k, device)}
     return {"panels": panel_count(k)} if mode == "panel" else {}
 
 
@@ -167,10 +188,11 @@ def pipeline_batched(k: int, batch: int, construction: str | None = None, device
 
 
 def _staged_input(ods, mode: str, dev: torch.device):
-    """The pipeline's input: under "panel" the ODS as it lies (a host array
-    made contiguous; the runner uploads one panel at a time), else the
-    whole square on `dev` (a host array through device.upload)."""
-    if mode == "panel":
+    """The pipeline's input: under "panel" and "sharded_panel" the ODS as it
+    lies (a host array made contiguous; the runner uploads one panel at a
+    time, per shard), else the whole square on `dev` (a host array through
+    device.upload)."""
+    if mode in ("panel", "sharded_panel"):
         return ods if isinstance(ods, torch.Tensor) else np.ascontiguousarray(ods, dtype=np.uint8)
     if isinstance(ods, torch.Tensor):
         return ods.to(dev)
@@ -183,7 +205,9 @@ def _check_square(k: int) -> None:
 
 
 class ExtendedDataSquare:
-    """Handle to a computed EDS and its NMT roots, kept on the device."""
+    """Handle to a computed EDS and its NMT roots, kept on the device (or,
+    from the sharded lowerings, on the shards of a mesh as a
+    parallel/mesh.RowSharded, which the accessors index the same way)."""
 
     def __init__(self, eds: torch.Tensor, row_roots: torch.Tensor,
                  col_roots: torch.Tensor, data_root: torch.Tensor, k: int):
@@ -261,11 +285,14 @@ class ExtendedDataSquare:
         """Extend a (k, k, 512) uint8 ODS (numpy or tensor) on `device`
         (default CUDA; a CUDA request without a card raises) through the
         lowering kernels/fused.pipeline_mode_for_k selects at this call
-        ($CELESTIA_PIPE_PANEL, then $CELESTIA_PIPE_FUSED).  Under "panel"
-        the runner takes the host copy and uploads it panel by panel, never
-        the whole square.  With $CELESTIA_PIPE_SPECULATE armed, a pending
-        speculation of exactly these bytes is claimed instead of computed
-        again."""
+        ($CELESTIA_EXTEND_SHARDS, $CELESTIA_PIPE_PANEL, then
+        $CELESTIA_PIPE_FUSED).  Under "panel" the runner takes the host copy
+        and uploads it panel by panel, never the whole square; under
+        "sharded_panel" each shard of the extend mesh does so for its slab,
+        and the EDS stays row-sharded (parallel/mesh.RowSharded): reads of
+        rows, shares and host bytes go to the owning block.  With
+        $CELESTIA_PIPE_SPECULATE armed, a pending speculation of exactly
+        these bytes is claimed instead of computed again."""
         dev = resolve_device(device)
         k = ods.shape[0]
         _check_square(k)
@@ -285,7 +312,7 @@ class ExtendedDataSquare:
             # A pending entry that did not match is the round-change
             # outcome: its square is discarded, never served.
             spec_outcome = "discard"
-        mode = fused.pipeline_mode_for_k(k)
+        mode = fused.pipeline_mode_for_k(k, dev)
         run, state = _pipeline_and_state(k, construction, mode, dev)
         t0 = time.perf_counter()
         x = _staged_input(ods, mode, dev)
@@ -293,7 +320,7 @@ class ExtendedDataSquare:
         eds, rr, cr, droot = run(x)
         journal.record("compute", k, mode=mode, compile=state, upload_ms=(t1 - t0) * 1e3,
                        dispatch_ms=(time.perf_counter() - t1) * 1e3,
-                       **_panel_fields(mode, k),
+                       **_panel_fields(mode, k, dev),
                        **({"speculation": spec_outcome} if spec_outcome else {}))
         return cls(eds, rr, cr, droot, k)
 
@@ -421,7 +448,7 @@ class SpeculativeExtender:
             raise ValueError(f"ODS must be ({k}, {k}, {SHARE_SIZE}), got {tuple(ods.shape)}")
         construction = construction or active_construction()
         host = _host_bytes(ods)
-        mode = fused.pipeline_mode_for_k(k)
+        mode = fused.pipeline_mode_for_k(k, dev)
         run = _cached_pipeline(k, construction, _config(k, mode, dev), mode, dev)
         done = None
         if dev.type == "cuda":

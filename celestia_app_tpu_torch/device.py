@@ -108,11 +108,13 @@ def hand_over(tensors, done) -> None:
     """Make the calling thread's current stream wait on `done`, recorded on
     the side stream that wrote `tensors`, and record the tensors on the
     current stream, so the caching allocator keeps their memory from the
-    side stream until the current stream's reads are done.  Nothing to do
-    on the CPU (`done` is None)."""
+    side stream until the current stream's reads are done.  A row-sharded
+    output (parallel/mesh.RowSharded) is handed over block by block, on
+    each block's device.  Nothing to do on the CPU (`done` is None)."""
     if done is None:
         return
-    current = torch.cuda.current_stream(tensors[0].device)
-    current.wait_event(done)
     for t in tensors:
-        t.record_stream(current)
+        for part in getattr(t, "blocks", (t,)):
+            current = torch.cuda.current_stream(part.device)
+            current.wait_event(done)
+            part.record_stream(current)

@@ -4,13 +4,15 @@ Each source in celestia_app_tpu_torch/csrc/*.cu is compiled at first use by
 `nvcc` for sm_90a into a shared library with a plain C interface, written to
 celestia_app_tpu_torch/build/ (git-ignored) under a name that carries the
 digest of its sources and flags, and loaded with ctypes.  Every C entry
-point launches on the caller's stream and returns cudaGetLastError(); a
-non-zero code raises here.  Nothing falls back to a plain version.
+point launches on the stream it is given (by default the current stream of
+the device its tensors lie on) and returns cudaGetLastError(); a non-zero
+code raises here.  Nothing falls back to a plain version.
 
 `LAUNCHES` counts, per kernel, the launches made through `launch`, so a run
-can show that its main path went through the kernels.  The streaming
-pipeline launches from its dispatcher thread while the caller may launch
-too, so the counts change under a lock.
+can show that its main path went through the kernels, and
+`STREAM_LAUNCHES` the same per stream.  The streaming pipeline launches
+from its dispatcher thread while the caller may launch too, so the counts
+change under a lock.
 """
 
 from __future__ import annotations
@@ -61,6 +63,11 @@ LAUNCHES: dict[str, int] = {
     "sha256": 0, "sha256_leaf": 0, "rs_dense": 0, "rs_xor": 0, "rs_dense_leaf": 0,
 }
 
+# (kernel name, CUDA stream handle) -> launches since the last
+# reset_launches(): a mesh (parallel/mesh.py) gives each shard a stream of
+# its own, so this splits the counts by shard even when shards share a card.
+STREAM_LAUNCHES: dict[tuple[str, int], int] = {}
+
 _LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -70,6 +77,7 @@ def reset_launches() -> None:
     with _COUNT_LOCK:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+        STREAM_LAUNCHES.clear()
 
 
 def nvcc_path() -> str:
@@ -145,17 +153,33 @@ def library(lib: str) -> ctypes.CDLL:
         return handle
 
 
-def launch(kernel: str, lib: str, fn: str, *args) -> None:
-    """Call one C entry point on the current stream and count the launch.
+def launch(kernel: str, lib: str, fn: str, *args, stream=None) -> None:
+    """Call one C entry point on the device of its tensor arguments and count
+    the launch.
 
-    Tensor arguments pass as their device pointers; the caller keeps them
-    alive until the call returns (the launch is enqueued by then, and the
-    caching allocator keeps the memory for the stream)."""
+    The tensors must all lie on one CUDA device; the call runs under that
+    device's guard (the kernels' per-device set-up reads the current device)
+    on `stream`, by default that device's current stream, never another
+    device's.  Tensor arguments pass as their device pointers; the caller
+    keeps them alive until the call returns (the launch is enqueued by then,
+    and the caching allocator keeps the memory for the stream)."""
+    devices = {a.device for a in args if isinstance(a, torch.Tensor)}
+    if len(devices) != 1:
+        raise ValueError(f"{fn}: tensor arguments on {sorted(map(str, devices))}, "
+                         "want one CUDA device")
+    dev = devices.pop()
+    if dev.type != "cuda":
+        raise ValueError(f"{fn}: tensor arguments on {dev}, want a CUDA device")
     call = getattr(library(lib), fn)
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = call(*ptrs, stream)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev) if stream is None else stream
+        if stream.device != dev:
+            raise ValueError(f"{fn}: stream on {stream.device}, tensors on {dev}")
+        rc = call(*ptrs, stream.cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn} failed to launch: CUDA error {rc}")
     with _COUNT_LOCK:
         LAUNCHES[kernel] += 1
+        key = (kernel, stream.cuda_stream)
+        STREAM_LAUNCHES[key] = STREAM_LAUNCHES.get(key, 0) + 1

@@ -12,7 +12,9 @@ Selection seam: $CELESTIA_PIPE_FUSED, read per call by `pipeline_mode`
 "fused_epi" (the column phase and the bottom half's leaf digests in one
 launch of the epilogue kernel, kernels/rs_xor.extend_leaf_digests),
 anything else -> "fused".  Per square size, $CELESTIA_PIPE_PANEL puts the
-panel-streamed lowering (kernels/panel.py) above these: `pipeline_mode_for_k`.
+panel-streamed lowering (kernels/panel.py) above these, and
+$CELESTIA_EXTEND_SHARDS its sharded twin (kernels/panel_sharded.py) above
+that: `pipeline_mode_for_k`.
 Every mode gives the same bytes.
 """
 
@@ -53,29 +55,38 @@ def pipeline_mode() -> str:
     return env_base_mode()
 
 
-def env_base_mode_for_k(k: int) -> str:
-    """The lowering the environment selects for square size k: "panel"
-    where $CELESTIA_PIPE_PANEL engages at k (kernels/panel.panel_rows),
+def env_base_mode_for_k(k: int, device=None) -> str:
+    """The lowering the environment selects for square size k on `device`:
+    "sharded_panel" where $CELESTIA_EXTEND_SHARDS engages on top of the
+    panel seam (kernels/panel_sharded.shards_for_k; it counts `device`'s
+    cards, default CUDA, only when the variable asks for shards), "panel"
+    where only $CELESTIA_PIPE_PANEL engages at k (kernels/panel.panel_rows),
     else env_base_mode()."""
     from celestia_app_tpu_torch.kernels.panel import panel_rows
 
-    return "panel" if panel_rows(k) else env_base_mode()
+    if not panel_rows(k):
+        return env_base_mode()
+    from celestia_app_tpu_torch.kernels.panel_sharded import shards_for_k
+
+    return "sharded_panel" if shards_for_k(k, device) else "panel"
 
 
-def pipeline_mode_for_k(k: int) -> str:
+def pipeline_mode_for_k(k: int, device=None) -> str:
     """The active extend + DAH lowering for square size k: pipeline_mode()
-    with the per-k panel seam above it.  No ladder, as pipeline_mode."""
-    return env_base_mode_for_k(k)
+    with the per-k panel and sharded-panel seams above it.  No ladder, as
+    pipeline_mode."""
+    return env_base_mode_for_k(k, device)
 
 
-def leaf_namespaces(eds: torch.Tensor, k: int) -> torch.Tensor:
-    """(..., 2k, 2k, 29) row-major leaf namespaces of (..., 2k, 2k, S)
-    squares: Q0 leaves carry the share's own namespace, every parity leaf
-    (row >= k or col >= k) 0xFF^29 (reference
+def leaf_namespaces(eds: torch.Tensor, k: int, row0: int = 0, col0: int = 0) -> torch.Tensor:
+    """(..., R, C, 29) row-major leaf namespaces of (..., R, C, S) shares,
+    the block of a square at rows row0.. and columns col0.. (default: whole
+    (2k, 2k) squares): Q0 leaves carry the share's own namespace, every
+    parity leaf (row >= k or col >= k) 0xFF^29 (reference
     pkg/wrapper/nmt_wrapper.go:93-114)."""
-    n = eds.shape[-2]
-    idx = torch.arange(n, device=eds.device)
-    q0 = (idx[:, None] < k) & (idx[None, :] < k)
+    rows = torch.arange(row0, row0 + eds.shape[-3], device=eds.device)
+    cols = torch.arange(col0, col0 + eds.shape[-2], device=eds.device)
+    q0 = (rows[:, None] < k) & (cols[None, :] < k)
     return torch.where(q0[..., None], eds[..., :NAMESPACE_SIZE],
                        parity_namespaces((), eds.device))
 
@@ -231,30 +242,84 @@ def forest_fn(k: int):
     square (each digest serves its row and its column tree), then one node
     launch per level and axis."""
 
+    def run(eds: torch.Tensor):
+        return forest_from_digests(*leaf_digests(leaf_namespaces(eds, k), eds))
+
+    return run
+
+
+def forest_from_digests(mins, maxs, hashes):
+    """The two flat forests of forest_fn from the (2k, 2k) leaf digests."""
+
     def flatten(levels) -> torch.Tensor:
         return torch.cat([torch.cat([m, x, h], dim=2).reshape(-1, 90) for m, x, h in levels])
 
-    def run(eds: torch.Tensor):
-        mins, maxs, hashes = leaf_digests(leaf_namespaces(eds, k), eds)
-        row_levels = tree_levels_from_digests(mins, maxs, hashes)
-        col_levels = tree_levels_from_digests(
-            mins.transpose(0, 1).contiguous(),
-            maxs.transpose(0, 1).contiguous(),
-            hashes.transpose(0, 1).contiguous(),
-        )
-        return flatten(row_levels), flatten(col_levels)
+    row_levels = tree_levels_from_digests(mins, maxs, hashes)
+    col_levels = tree_levels_from_digests(
+        mins.transpose(0, 1).contiguous(),
+        maxs.transpose(0, 1).contiguous(),
+        hashes.transpose(0, 1).contiguous(),
+    )
+    return flatten(row_levels), flatten(col_levels)
 
-    return run
+
+def row_block_leaf_digests(eds, k: int, device: torch.device):
+    """Leaf digests of a row-sharded EDS (parallel/mesh.RowSharded): each
+    block is hashed where it lies (one sha256_leaves launch per block, on
+    the current stream of its device), and the (2k, 2k) namespace and
+    digest grids gather onto `device`; the EDS itself never moves."""
+    n = 2 * k
+    ns = torch.empty((n, n, NAMESPACE_SIZE), dtype=torch.uint8, device=device)
+    hashes = torch.empty((n, n, 32), dtype=torch.uint8, device=device)
+    rows = eds.rows_per_block
+    for b, block in enumerate(eds.blocks):
+        block_ns = leaf_namespaces(block, k, row0=b * rows)
+        ns[b * rows:(b + 1) * rows] = block_ns
+        hashes[b * rows:(b + 1) * rows] = leaf_digests(block_ns, block)[2]
+    return ns, ns, hashes
 
 
 @lru_cache(maxsize=None)
 def forest(k: int, device=None):
     """The forest builder of square size k on `device` (default CUDA;
-    raises without a card): f(eds) moves `eds` there if it lies elsewhere."""
+    raises without a card): f(eds) moves `eds` there if it lies elsewhere;
+    a row-sharded EDS is hashed block by block where it lies."""
     dev = resolve_device(device)
     run = forest_fn(k)
 
-    def build(eds: torch.Tensor):
+    def build(eds):
+        if hasattr(eds, "blocks"):
+            return forest_from_digests(*row_block_leaf_digests(eds, k, dev))
         return run(eds.to(dev))
 
     return build
+
+
+@lru_cache(maxsize=None)
+def forest_sharded(k: int, mesh):
+    """The forest builder whose output is the serve plane's row partition
+    (the port of celestia_app_tpu/kernels/fused.jit_forest_sharded):
+    f(eds) -> (row_flat, col_flat), each a parallel/mesh.RowSharded of the
+    flat forest padded to a multiple of the mesh width, block i on shard i.
+    The forest is built on shard 0's device, then each shard copies its
+    block once, at admission; every gather reads the blocks where they
+    lie."""
+    from celestia_app_tpu_torch.parallel.mesh import RowSharded, padded_rows, place_rows
+
+    n = 2 * k
+    rows = n * (2 * n - 1)  # sum of n*w over widths n, n/2, ..., 1
+    padded = padded_rows(rows, mesh.size)
+    build = forest(k, mesh.devices[0])
+
+    def run(eds):
+        flats = []
+        for flat in build(eds):
+            if padded > rows:
+                flat = torch.cat([flat, flat.new_zeros((padded - rows, flat.shape[1]))])
+            mesh.enter()
+            sharded = RowSharded(mesh, place_rows(mesh, flat, padded // mesh.size))
+            mesh.leave((sharded,))
+            flats.append(sharded)
+        return tuple(flats)
+
+    return run

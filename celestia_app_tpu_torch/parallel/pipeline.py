@@ -34,10 +34,15 @@ Giant squares: where $CELESTIA_PIPE_PANEL engages at k (kernels/panel.py),
 the batch is forced to 1 and the uploader only copies the ODS into its
 pinned slot; the dispatcher hands the slot to the panel runner, which
 uploads one row panel at a time on the compute stream, so the card never
-holds the whole ODS beside the pipeline's working set.
+holds the whole ODS beside the pipeline's working set.  Under
+$CELESTIA_EXTEND_SHARDS (kernels/panel_sharded.py) the sharded runner takes
+the slot the same way, each shard uploading its own panels on its stream
+after the compute stream's queued work, and the compute stream waits on
+every shard before the batch's done event.
 
 Every drained block writes one "stream" row to the block journal
-(trace/journal.py) with the JAX field names (`panels` on panel rows).
+(trace/journal.py) with the JAX field names (`panels` on panel rows,
+`shards` on sharded ones).
 
 Not ported (the node integration will bring them, ROADMAP queue 1): the
 chaos seams and the upload retry, `guarded_dispatch` with its batched ->
@@ -224,16 +229,17 @@ class BlockPipeline:
         self.k = k
         self.depth = depth
         self.batch = max(1, batch if batch is not None else env_batch())
-        # Panel streaming: giant squares never coalesce (a batch would hold
-        # B whole squares), and the slot goes to the runner panel by panel.
+        # Panel streaming, sharded or not: giant squares never coalesce (a
+        # batch would hold B whole squares), and the slot goes to the runner
+        # panel by panel.
         self._panel = panel_rows(k)
         if self._panel:
             self.batch = 1
         # Bound to the construction, RS core and lowering active at
         # creation: every block it streams uses them.
         self.construction = active_construction()
-        self._mode = pipeline_mode_for_k(k)
-        self._journal_extras = _panel_fields(self._mode, k)
+        self._mode = pipeline_mode_for_k(k, self.device)
+        self._journal_extras = _panel_fields(self._mode, k, self.device)
         single, self._compile_state = _pipeline_and_state(k, self.construction, self._mode,
                                                           self.device)
         self._pipes = {1: single}
@@ -456,7 +462,7 @@ class BlockPipeline:
         journal.record(
             "stream", inflight.k, mode=inflight.mode, compile=self._compile_state,
             tag=str(inflight.tag), depth=self.depth, batch_size=meta.get("batch_size", 1),
-            **({"panels": meta["panels"]} if "panels" in meta else {}),
+            **{key: meta[key] for key in ("panels", "shards") if key in meta},
             intake_wait_ms=meta.get("intake_wait_ms", 0.0),
             upload_ms=meta.get("upload_ms", 0.0),
             upload_stall_ms=meta.get("upload_stall_ms", 0.0),

@@ -15,6 +15,11 @@ Tiers, all bounded:
           (the same bytes; the gathers run on the host);
   gone    beyond that the entry drops.
 
+Under $CELESTIA_SERVE_SHARDS > 1 admission goes through serve/shard.py:
+both forests are row-partitioned over a serve mesh and gathers read each
+row on its shard; an EDS that arrives row-sharded (the sharded extend
+lowerings) stays so, and share reads go to the owning shard.
+
 The port of celestia_app_tpu/serve/cache.py (CachedForest, ForestCache).
 """
 
@@ -30,7 +35,8 @@ import torch
 from celestia_app_tpu_torch import merkle
 from celestia_app_tpu_torch.constants import SHARE_SIZE
 from celestia_app_tpu_torch.device import resolve_device
-from celestia_app_tpu_torch.kernels.fused import forest, forest_level_layout
+# `forest` is read from here by serve/shard.build_entry, the admission seam.
+from celestia_app_tpu_torch.kernels.fused import forest, forest_level_layout  # noqa: F401
 
 
 def serve_heights() -> int:
@@ -91,6 +97,12 @@ class CachedForest:
         self.device_resident = True
         self.row_flat = row_flat  # (N, 90): every row-tree level, flat
         self.col_flat = col_flat
+        # Share sharding: an EDS that arrived row-sharded over an extend
+        # mesh is kept as it is, and share reads go to the owning shard.
+        from celestia_app_tpu_torch.serve.shard import eds_share_layout
+
+        layout = eds_share_layout(eds._eds)
+        self.share_shards = layout[2] if layout is not None else 0
         self.widths, self.offsets = forest_level_layout(self.k)
         self.row_roots = eds.row_roots()
         self.col_roots = eds.col_roots()
@@ -108,9 +120,18 @@ class CachedForest:
         return _take(self.row_flat if axis == "row" else self.col_flat, flat_indices)
 
     def gather_shares(self, coords) -> np.ndarray:
-        """(B, SHARE_SIZE) shares of [(row, col), ...] in one gather."""
+        """(B, SHARE_SIZE) shares of [(row, col), ...] in one gather.  A
+        row-sharded EDS (the sharded extend lowerings') answers with each
+        coordinate read on the shard that owns its row, never gathered onto
+        one device (serve/shard.sharded_share_gather)."""
+        from celestia_app_tpu_torch.serve.shard import sharded_share_gather
+
         n = 2 * self.k
-        return _take(self.eds._eds.reshape(n * n, SHARE_SIZE), [r * n + c for r, c in coords])
+        buf = self.eds._eds
+        out = sharded_share_gather(buf, coords)
+        if out is not None:
+            return out
+        return _take(buf.reshape(n * n, SHARE_SIZE), [r * n + c for r, c in coords])
 
     def line_levels(self, axis: str, index: int) -> list[list[bytes]]:
         """Every digest level of one tree, as host bytes (one gather)."""
@@ -136,14 +157,19 @@ class CachedForest:
         self.col_flat = self.col_flat.cpu()
         self.eds._eds = self.eds._eds.cpu()
         self.device_resident = False
+        self.share_shards = 0  # the host copy is one tensor, unsharded
 
 
 class ForestCache:
     """LRU over heights with a device and a host tier; thread-safe.  Forests
-    are built on `device` (default CUDA; raises without a card)."""
+    are built on `device` (default CUDA; raises without a card), and laid
+    out over `mesh` when one is given (serve/shard.build_entry), else over
+    the $CELESTIA_SERVE_SHARDS mesh."""
 
-    def __init__(self, heights: int | None = None, spill: int | None = None, device=None):
+    def __init__(self, heights: int | None = None, spill: int | None = None, device=None,
+                 mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self._heights = heights
         self._spill = spill
         self._lock = threading.Lock()
@@ -161,9 +187,10 @@ class ForestCache:
                 self._spill if self._spill is not None else spill_heights())
 
     def put(self, height: int, eds) -> CachedForest | None:
-        """Retain one height: build its forest and admit it to the device
-        tier, pushing the oldest down the tiers.  None when retention is
-        disabled ($CELESTIA_SERVE_HEIGHTS=0)."""
+        """Retain one height: build its forest (serve/shard.build_entry:
+        row-partitioned over the serve mesh under $CELESTIA_SERVE_SHARDS > 1)
+        and admit it to the device tier, pushing the oldest down the tiers.
+        None when retention is disabled ($CELESTIA_SERVE_HEIGHTS=0)."""
         cap, spill_cap = self._capacity()
         if cap <= 0:
             return None
@@ -180,8 +207,9 @@ class ForestCache:
                     if existing is not None:  # a concurrent put built it
                         self._device.move_to_end(height)
                         return existing
-                row_flat, col_flat = forest(eds.k, self.device)(eds._eds)
-                entry = CachedForest(height, eds, row_flat, col_flat)
+                from celestia_app_tpu_torch.serve.shard import build_entry
+
+                entry = build_entry(height, eds, self.device, self.mesh)
                 self._admit(entry, cap, spill_cap)
                 return entry
         finally:
@@ -222,11 +250,16 @@ class ForestCache:
             return height in self._device or height in self._host
 
     def stats(self) -> dict:
-        """Residency, hits, misses, hit ratio and the last eviction."""
+        """Residency, hits, misses, hit ratio, the last eviction and, under
+        $CELESTIA_SERVE_SHARDS > 1, the "mesh" view (serve/shard.mesh_stats:
+        shard count, axis, per-shard resident forest bytes; else None)."""
+        from celestia_app_tpu_torch.serve.shard import mesh_stats
+
         with self._lock:
             hits = dict(self._hits)
             total = hits["device"] + hits["host"] + self._misses
-            return {
+            entries = list(self._device.values())
+            out = {
                 "device_heights": sorted(self._device),
                 "host_heights": sorted(self._host),
                 "hits": hits,
@@ -235,3 +268,5 @@ class ForestCache:
                               if total else None),
                 "last_eviction": self._last_eviction,
             }
+        out["mesh"] = mesh_stats(entries)
+        return out

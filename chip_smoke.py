@@ -65,7 +65,18 @@ Phases, in order; any failure raises and the script exits non-zero:
              parity shares per k == the host additive FFT, launches per
              lowering as counted from the code, wall and device time and
              peak memory per lowering, a k=1024 BlockPipeline under panel
-             mode (batch 1, 16 panels per square).
+             mode (batch 1, 16 panels per square);
+ 14. mesh    the multi-device plane on 4 logical shards of cuda:0, each with
+             its own stream (and again over the real cards where there are
+             two or more): the k=512 sharded extend over 2 and 4 shards and
+             its DAH-only twin == single-card compute, sharded repair with
+             Q3 withheld, 4096 samples per axis from forests over a 4-shard
+             serve mesh == the single-card sampler; the k=2048 sharded panel
+             square (64-row panels) and its roots-only twin == phase_giant's
+             data root, with wall, device busy and idle, peak memory and
+             launches per shard, a share gather from its row-sharded EDS;
+             rs_dense == plain on one owner's column contraction; the k=1024
+             FFT leg's root.
 Then one JSON line per kernel table, the card's name and power limit, and
 last the result line {"ok": true, "device": {...}}.  Needs no network and no
 argument; exits non-zero without a CUDA device.
@@ -1887,6 +1898,7 @@ def phase_giant(torch, card: str) -> dict:
                       and torch.equal(eds._data_root, ref._data_root)):
                 raise AssertionError(f"giant k={k} {name}: EDS or roots != the fused lowering's")
             del eds
+        records[k]["data_root"] = ref.data_root().hex()
         log(f"[{card}] giant k={k}: data root {ref.data_root().hex()} and EDS equal on "
             f"{lowerings} (+ the roots-only twins of the panel lowerings)")
 
@@ -1979,6 +1991,307 @@ def phase_giant(torch, card: str) -> dict:
     return records
 
 
+# --- the multi-device plane: sharded extend, panel, repair and serving ---
+
+# Shards of the mesh phase_mesh runs on one card (and the widest mesh it
+# takes on a machine with several); its square sizes: the sharded extend,
+# repair and serving, the sharded panel square (phase_giant's largest) and
+# the FFT leg's (phase_giant's smallest).
+MESH_SHARDS = 4
+MESH_K = 512
+
+
+def mesh_launches(k: int, n: int, rows: int = 0) -> list[dict]:
+    """Kernel launches per shard of one sharded extend + DAH of size k over
+    n shards, as the code makes them: the sharded extend (rows=0) runs per
+    shard rs_dense twice (row phase, column phase), sha256_leaves once, and
+    sha256_batch once per level of its column trees (log2 2k) and of its
+    row subtrees (log2 2k/n); the sharded panel lowering (rows per panel)
+    per step rs_dense twice (row phase, the owner's column contraction) and
+    sha256_leaves once, then once for the parity slab, and sha256_batch
+    once per level of its row trees (log2 2k) and of its column subtrees
+    (log2 k/n).  Shard 0 adds the top levels (log2 n, or log2 2n for the
+    panel's two slabs per shard) and the data root's tree (log2 4k + 1)."""
+    log2 = lambda v: v.bit_length() - 1  # noqa: E731
+    if rows:
+        steps = -(-(k // n) // rows)
+        per = {"rs_dense": 2 * steps, "sha256_leaf": steps + 1,
+               "sha256": log2(2 * k) + log2(k // n)}
+        top = log2(2 * n)
+    else:
+        per = {"rs_dense": 2, "sha256_leaf": 1, "sha256": log2(2 * k) + log2(2 * k // n)}
+        top = log2(n)
+    out = [dict(per, rs_xor=0, rs_dense_leaf=0) for _ in range(n)]
+    out[0]["sha256"] += top + (4 * k).bit_length()
+    return out
+
+
+def check_shard_launches(label: str, mesh, want: list[dict]) -> list[dict]:
+    """The launches each shard's stream took, held to `want` per shard."""
+    got = mesh.launches()
+    for i, (g, w) in enumerate(zip(got, want)):
+        check_launches(f"{label} shard {i}", g, w)
+    return got
+
+
+def mesh_meshes(torch):
+    """(label, make(n, axis), width) of each mesh phase_mesh runs: 4 logical
+    shards on cuda:0, each with its own stream, and on a machine with two
+    or more cards the first power-of-two count of them (up to 4)."""
+    from celestia_app_tpu_torch.parallel.mesh import Mesh, device_mesh
+
+    meshes = [(f"{MESH_SHARDS} logical shards on cuda:0",
+               lambda n, axis: Mesh([torch.device("cuda", 0)] * n, axis), MESH_SHARDS)]
+    count = torch.cuda.device_count()
+    if count >= 2:
+        width = min(MESH_SHARDS, 1 << (count.bit_length() - 1))
+        meshes.append((f"{width} cards", lambda n, axis: device_mesh(n, axis), width))
+    return meshes
+
+
+def phase_mesh(torch, card: str, giant: dict) -> dict:
+    """The multi-device plane at full width, on 4 logical shards of cuda:0
+    (and again over the real cards where there are two or more):
+
+    k=512 (GF(2^16), vandermonde): the sharded extend over 2 and 4 shards,
+    roots, data root and the EDS read back to the host == a single-card
+    ExtendedDataSquare.compute, the DAH-only twin's roots too, launches per
+    shard as mesh_launches counts them; sharded repair of the square with
+    Q3 withheld == the original EDS and roots; a serve mesh of 4 shards:
+    4096 samples per axis == the single-card ProofSampler's bytes.  k=2048
+    under $CELESTIA_PIPE_PANEL=auto, 4 shards: the sharded panel square's
+    data root == phase_giant's, its roots-only twin's too, wall, device busy
+    and idle under the profiler, peak allocated above the resident,
+    launches per shard; a share gather from its row-sharded EDS == the host
+    bytes of the rows; sha256_leaves and sha256_batch == their plain
+    versions at one shard's shapes, rs_dense on one owner's column
+    contraction shape, and its time there against the bound.  k=1024, the
+    FFT column leg: one data root == phase_giant's.  Returns the records."""
+    from celestia_app_tpu_torch.da import DataAvailabilityHeader, ExtendedDataSquare
+    from celestia_app_tpu_torch.gf.rs import codec_for_width
+    from celestia_app_tpu_torch.kernels import _build, panel, rs_dense
+    from celestia_app_tpu_torch.kernels import sha256 as sha
+    from celestia_app_tpu_torch.kernels.panel_sharded import (
+        _owner_generator_slices,
+        sharded_panel_pipeline,
+    )
+    from celestia_app_tpu_torch.parallel import sharded_eds
+    from celestia_app_tpu_torch.parallel.sharded_repair import sharded_repair
+    from celestia_app_tpu_torch.serve import ForestCache, ProofSampler
+    from celestia_app_tpu_torch.serve.shard import ShardedCachedForest, sharded_share_gather
+
+    records = {}
+    meshes = mesh_meshes(torch)
+    for label, make, width in meshes:
+        rec = records[label] = {}
+        with environment(GIANT_BASE):
+            k = MESH_K
+            ods = random_square(k, seed=k + 3)
+            ref = ExtendedDataSquare.compute(ods)
+            ref_host = ref.squared()
+            ref_roots = (ref._row_roots, ref._col_roots, ref._data_root)
+            for n in (2, 4):
+                if n > width:
+                    continue
+                mesh = make(n, "data")
+                sharded_eds.sharded_extend_and_dah(ods, mesh)  # builds and warms
+                torch.cuda.synchronize()
+                _build.reset_launches()
+                t0 = time.perf_counter()
+                eds, rr, cr, droot = sharded_eds.sharded_extend_and_dah(ods, mesh)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                per_shard = check_shard_launches(f"mesh {label} k={k} extend n={n}", mesh,
+                                                 mesh_launches(k, n))
+                if not all(torch.equal(a, b) for a, b in zip((rr, cr, droot), ref_roots)):
+                    raise AssertionError(f"mesh {label} k={k} n={n}: roots != single card")
+                if not np.array_equal(eds.numpy(), ref_host):
+                    raise AssertionError(f"mesh {label} k={k} n={n}: EDS != single card")
+                twin = sharded_eds.make_sharded_dah_pipeline(k, mesh)(ods)
+                if not all(torch.equal(a, b) for a, b in zip(twin, ref_roots)):
+                    raise AssertionError(f"mesh {label} k={k} n={n}: DAH-only twin != roots")
+                rec[f"extend_{n}"] = {"wall_ms": wall, "launches_per_shard": per_shard}
+                log(f"[{card}] mesh {label}: k={k} sharded extend over {n} shards: roots, data "
+                    f"root and EDS (read back) == single-card compute, DAH-only twin's roots "
+                    f"too; {wall:.3f} ms (warm, synchronized); launches per shard {per_shard}")
+                del eds, rr, cr, droot, twin
+
+            mesh = make(width, "data")
+            present = np.ones((2 * k, 2 * k), dtype=bool)
+            present[k:, k:] = False
+            damaged = np.where(present[..., None], ref_host, 0).astype(np.uint8)
+            dah = DataAvailabilityHeader.from_eds(ref)
+            _build.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fixed = sharded_repair(damaged, present, mesh, dah)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            per_shard = mesh.launches()
+            if not (np.array_equal(fixed.squared(), ref_host)
+                    and all(torch.equal(a, b) for a, b in zip(
+                        (fixed._row_roots, fixed._col_roots, fixed._data_root), ref_roots))):
+                raise AssertionError(f"mesh {label}: sharded repair != the original square")
+            check_launches(f"mesh {label} repair", {n: sum(c[n] for c in per_shard)
+                                                    for n in per_shard[0]},
+                           {"rs_dense": 3 * width})
+            rec["repair_ms"] = wall
+            log(f"[{card}] mesh {label}: k={k} sharded repair, Q3 withheld, {width} shards: "
+                f"== the original EDS and roots; {wall:.3f} ms (first call: recover matrix "
+                f"and replicas); launches per shard {per_shard}")
+            del fixed, damaged
+
+            smesh = make(width, "serve")
+            sharded = ForestCache(heights=1, spill=1, mesh=smesh).put(1, ref)
+            if not isinstance(sharded, ShardedCachedForest):
+                raise AssertionError(f"mesh {label}: the serve mesh gave {type(sharded)}")
+            single = ForestCache(heights=1, spill=1).put(2, ref)
+            sampler = ProofSampler()
+            rng = np.random.default_rng(4099)
+            for axis in ("row", "col"):
+                coords = [tuple(int(v) for v in c) for c in rng.integers(0, 2 * k, (4096, 2))]
+                t0 = time.perf_counter()
+                got = sampler.sample_batch(sharded, coords, axis=axis)
+                ms = (time.perf_counter() - t0) * 1e3
+                if got != sampler.sample_batch(single, coords, axis=axis):
+                    raise AssertionError(f"mesh {label}: sharded samples axis={axis} != "
+                                         "the single-card sampler's")
+                rec[f"samples_{axis}_ms"] = ms
+                log(f"[{card}] mesh {label}: 4096 samples axis={axis} from forests over "
+                    f"{width} serve shards == the single-card ProofSampler's; {ms:.3f} ms")
+            del sharded, single, ref
+
+        with environment({**GIANT_BASE, "CELESTIA_PIPE_PANEL": "auto"}):
+            k = GIANT_KS[-1]
+            ods = random_square(k, seed=k + 7)  # phase_giant's square of this k
+            want_root = giant[k]["data_root"]
+            mesh = make(width, "extend")
+            run = sharded_panel_pipeline(k, mesh=mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            first = run(ods)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            if first[3].cpu().numpy().tobytes().hex() != want_root:
+                raise AssertionError(f"mesh {label}: k={k} sharded panel root != phase_giant's")
+            del first
+            torch.cuda.empty_cache()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            eds, rr, cr, droot = run(ods)
+            got_root = droot.cpu().numpy().tobytes().hex()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated() - resident
+            rows = panel._AUTO_PANEL_ROWS
+            per_shard = check_shard_launches(f"mesh {label} k={k} panel", mesh,
+                                             mesh_launches(k, width, rows))
+            if got_root != want_root:
+                raise AssertionError(f"mesh {label}: k={k} sharded panel root != phase_giant's")
+            profiled = device_breakdown(torch, lambda: run(ods)[3].cpu(), card,
+                                        f"mesh {label} k={k} sharded panel")
+            busy, idle = profiled if profiled else (None, None)
+            # A share gather from the row-sharded EDS against the host bytes
+            # of the rows it reads (Q0 also against the ODS).
+            rng = np.random.default_rng(k)
+            lines = rng.choice(2 * k, 64, replace=False)
+            coords = [(int(r), int(c)) for r in lines for c in rng.choice(2 * k, 8, replace=False)]
+            shares = sharded_share_gather(eds, coords)
+            host_rows = {int(r): eds[int(r)].cpu().numpy() for r in lines}
+            for (r, c), share in zip(coords, shares):
+                if not np.array_equal(share, host_rows[r][c]) or (
+                        r < k and c < k and not np.array_equal(share, ods[r, c])):
+                    raise AssertionError(f"mesh {label}: share ({r}, {c}) != the host bytes")
+            # The hashing kernels at one shard's shapes: the leaves of one
+            # panel, and the first level of its 2*slab row trees.
+            ext = eds.blocks[1 % width][:rows]
+            ns = torch.where((torch.arange(2 * k, device=ext.device) < k)[None, :, None],
+                             ext[..., :29], torch.full((29,), 0xFF, dtype=torch.uint8,
+                                                       device=ext.device))
+            leaves = (ns.reshape(-1, 29), ext.reshape(-1, 512))
+            e = max_abs_err(sha.sha256_leaves(*leaves), sha.sha256_leaves_plain(*leaves))
+            msgs = torch.from_numpy(rng.integers(0, 256, (2 * (k // width) * k, 181),
+                                                 dtype=np.uint8)).to(ext.device)
+            e = max(e, max_abs_err(sha.sha256(msgs), sha.sha256_plain(msgs)))
+            if e:
+                raise AssertionError(f"mesh {label}: a hashing kernel != plain (max err {e})")
+            log(f"[{card}] mesh {label}: sha256_leaves == plain on one panel's "
+                f"{leaves[1].shape[0]} leaves, sha256_batch == plain on {msgs.shape[0]} 181-byte "
+                f"messages (one shard's first row-tree level)")
+            del eds, rr, cr, droot, host_rows, ext, ns, leaves, msgs
+            torch.cuda.empty_cache()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            twin = sharded_panel_pipeline(k, roots_only=True, mesh=mesh)(ods)
+            twin_root = twin[2].cpu().numpy().tobytes().hex()
+            twin_ms = (time.perf_counter() - t0) * 1e3
+            twin_peak = torch.cuda.max_memory_allocated() - resident
+            if twin_root != want_root:
+                raise AssertionError(f"mesh {label}: k={k} roots-only twin root != phase_giant's")
+            del twin
+
+            # rs_dense on one owner's column contraction: the gathered step
+            # panels (n*h rows) against its generator rows of the step.
+            codec = codec_for_width(k, "vandermonde")
+            m = codec.field.m
+            bps = m // 8
+            slab = k // width
+            bounds = panel.panel_bounds(slab, min(rows, slab))
+            g = _owner_generator_slices(k, "vandermonde", mesh.devices, bounds)[0][1 % width]
+            top = torch.from_numpy(ods[:width * rows]).to(mesh.devices[0])
+            panels = torch.cat([top, top], dim=1)  # (n*h, 2k, S): the contraction's operand shape
+            planes = panels.reshape(width * rows, 2 * k, 512 // bps, bps).movedim(3, 1)
+            planes = planes.reshape(width * rows, bps, -1).contiguous()
+            cols = 4096
+            x = planes[..., :cols].contiguous()
+            e = max_abs_err(rs_dense.mod2_matmul_planes(g, x, m),
+                            rs_dense.mod2_matmul_planes_plain(g, x, m))
+            if e:
+                raise AssertionError(f"mesh {label}: rs_dense != plain on the owner's column "
+                                     f"contraction (max err {e})")
+            kernel_ms = cuda_ms(torch, lambda: rs_dense.mod2_matmul_planes(g, planes, m), reps=3)
+            Pm, nm = g.shape
+            total_cols = planes.shape[2]
+            bound_ms, bound_by = bound(Pm * nm + planes.numel() + Pm // 8 * total_cols,
+                                       (2.0 * Pm * nm * total_cols, INT8_OPS_PER_S))
+            log(f"[{card}] mesh {label}: rs_dense == plain on one owner's column contraction, G "
+                f"{tuple(g.shape)}, x {tuple(x.shape)} (first {cols} columns); at the full "
+                f"{tuple(planes.shape)}: {kernel_ms:.3f} ms per launch, bound {bound_ms:.3f} ms "
+                f"({bound_by}), {100 * bound_ms / kernel_ms:.0f} % of it")
+            del top, panels, planes, x
+            rec["panel_2048"] = {
+                "first_s": first_s, "wall_ms": wall, "busy_ms": busy, "idle": idle,
+                "peak_gb": peak / 1e9, "resident_gb": resident / 1e9, "twin_ms": twin_ms,
+                "twin_gb": twin_peak / 1e9, "launches_per_shard": per_shard,
+                "owner_rs_dense_ms": kernel_ms, "owner_rs_dense_bound_ms": bound_ms}
+            log(f"[{card}] mesh {label}: k={k} sharded panel ({width} shards, {rows}-row panels): "
+                f"data root == phase_giant's, roots-only twin too; first call {first_s:.3f} s; "
+                f"wall {wall:.3f} ms, peak allocated {peak / 1e9:.3f} GB above the resident "
+                f"(roots only: {twin_ms:.3f} ms, {twin_peak / 1e9:.3f} GB); launches per shard "
+                f"{per_shard}; 512 shares of its row-sharded EDS == the host bytes")
+
+        with environment({**GIANT_BASE, "CELESTIA_PIPE_PANEL": "auto", "CELESTIA_RS_FFT": "on"}):
+            k = GIANT_KS[0]
+            t0 = time.perf_counter()
+            rr, cr, droot = sharded_panel_pipeline(k, roots_only=True, mesh=make(width, "extend"))(
+                random_square(k, seed=k + 7))
+            fft_root = droot.cpu().numpy().tobytes().hex()
+            rec["fft_1024_s"] = time.perf_counter() - t0
+            if fft_root != giant[k]["data_root"]:
+                raise AssertionError(f"mesh {label}: k={k} FFT leg root != phase_giant's")
+            log(f"[{card}] mesh {label}: k={k} sharded panel on the FFT column leg (all_to_all "
+                f"to column blocks and back): data root == phase_giant's "
+                f"({rec['fft_1024_s']:.3f} s, first call)")
+        torch.cuda.empty_cache()
+    log(f"mesh: ran {[label for label, _, _ in meshes]}; on one card every collective is a "
+        f"copy inside the card (the interconnect is not measured)")
+    log(f"mesh records: {json.dumps(records)}")
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -2041,8 +2354,10 @@ def main() -> int:
     phase_done("querier")
     bridge_counts = phase_bridge(torch, card)
     phase_done("bridge")
-    phase_giant(torch, card)
+    giant = phase_giant(torch, card)
     phase_done("giant")
+    phase_mesh(torch, card, giant)
+    phase_done("mesh")
     log(f"launches: per commitment batch {commit_counts}; per proof query {query_counts}; "
         f"in the bridge worker over its run {bridge_counts}")
 

@@ -560,3 +560,87 @@ def test_panel_fft_leg_and_stream_on_card(cuda, monkeypatch):
     out = list(stream_blocks(iter(blocks), k, depth=2, batch=4))
     for (_, e), ref in zip(out, want):
         assert torch.equal(e._eds, ref._eds) and e.data_root() == ref.data_root()
+
+
+# --- the multi-device plane (parallel/mesh.py) ---------------------------------
+
+
+@pytest.mark.parametrize("construction", ["vandermonde", "leopard"])
+def test_four_shard_mesh_on_one_card_equals_cpu(cuda, construction, monkeypatch):
+    """Four logical shards on cuda:0, each with its own stream and buffers:
+    the sharded extend, the sharded panel lowering (dense and FFT legs),
+    sharded repair and the sharded serving gathers give the CPU mesh's
+    bytes, and rs_dense, sha256_leaves and sha256_batch launch on every
+    shard's stream."""
+    from celestia_app_tpu_torch.da import ExtendedDataSquare
+    from celestia_app_tpu_torch.kernels import panel_sharded as ps
+    from celestia_app_tpu_torch.parallel import sharded_eds
+    from celestia_app_tpu_torch.parallel.mesh import Mesh
+    from celestia_app_tpu_torch.parallel.sharded_repair import sharded_repair
+    from celestia_app_tpu_torch.serve import ForestCache, ProofSampler
+
+    k = 64
+    ods = _panel_square(k, seed=11)
+    # Namespaces rising in row-major order, as NMT proofs need.
+    ods[..., :29] = 0
+    ods[..., 27:29] = np.arange(k * k, dtype=">u2").view(np.uint8).reshape(k, k, 2)
+    card = Mesh([torch.device("cuda", 0)] * 4, "data")
+    host = Mesh(["cpu"] * 4, "data")
+    want = sharded_eds.make_sharded_pipeline(k, host, construction)(ods)
+    _build.reset_launches()
+    got = sharded_eds.make_sharded_pipeline(k, card, construction)(ods)
+    for a, b in zip(got, want):
+        assert np.array_equal(a.cpu().numpy(), b.cpu().numpy())
+    for counts in card.launches():
+        assert min(counts["rs_dense"], counts["sha256_leaf"], counts["sha256"]) > 0, counts
+    monkeypatch.setenv("CELESTIA_PIPE_PANEL", "5")
+    for fft in ("auto", "on"):
+        monkeypatch.setenv("CELESTIA_RS_FFT", fft)
+        out = ps.sharded_panel_pipeline(k, construction, mesh=Mesh([cuda] * 4, "extend"))(ods)
+        for a, b in zip(out, want):
+            assert np.array_equal(a.cpu().numpy(), b.cpu().numpy()), fft
+    full = want[0].numpy()
+    present = np.ones((2 * k, 2 * k), dtype=bool)
+    present[k:, :k] = False
+    monkeypatch.setenv("CELESTIA_RS_CONSTRUCTION", construction)
+    fixed = sharded_repair(np.where(present[..., None], full, 0).astype(np.uint8), present, card)
+    assert np.array_equal(fixed.squared(), full)
+    monkeypatch.setenv("CELESTIA_SERVE_SHARDS", "1")
+    eds = ExtendedDataSquare(*got, k)
+    entry = ForestCache(heights=1, spill=1).put(1, eds)
+    coords = [(0, 0), (k, 2 * k - 1), (2 * k - 1, 3)]
+    shares = entry.gather_shares(coords)
+    assert np.array_equal(shares, np.stack([full[r, c] for r, c in coords]))
+    proofs = ProofSampler().sample_batch(entry, coords)
+    assert all(p.verify(eds.data_root()) for p in proofs)
+    single = ExtendedDataSquare.compute(ods, construction)
+    assert proofs == ProofSampler().sample_batch(ForestCache(heights=1, spill=1).put(2, single),
+                                                 coords)
+
+
+def test_launch_on_the_last_card(cuda):
+    """A launch on cuda:{n-1} from a thread whose current device is 0 runs
+    on that card's stream (kernels/_build.launch's device guard), and the
+    tensor-core kernel's set-up is made there too (csrc/rs_dense.cuh)."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs at least 2 cards to launch on another one; this machine has {n}")
+    from celestia_app_tpu_torch.kernels.rs import _encode_with
+
+    last = torch.device("cuda", n - 1)
+    rng = np.random.default_rng(n)
+    codec = RSCodec(64, "vandermonde")
+    m = codec.field.m
+    G = codec_tensors(codec.generator_bits(), m, last)["G_bits"]
+    data = _bytes(rng, 64, 64, 512)
+    with torch.cuda.device(0):
+        got = _encode_with(rs_dense.mod2_matmul_planes, data.to(last), G, m, 1)
+        digests = sha.sha256(data.reshape(-1, 512)[:100].to(last))
+    assert got.device == last and digests.device == last
+    want = _encode_with(rs_dense.mod2_matmul_planes_plain, data, G.cpu(), m, 1)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(digests.cpu(), sha.sha256_plain(data.reshape(-1, 512)[:100]))
+    with pytest.raises(ValueError, match="want one CUDA device"):
+        _build.launch("sha256", "sha256", "sha256_batch",
+                      torch.zeros((2, 64), dtype=torch.uint8, device="cuda:0"), 2, 64,
+                      torch.empty((2, 32), dtype=torch.uint8, device=last))

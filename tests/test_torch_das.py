@@ -10,9 +10,11 @@ side compiles only its forest and verifier programs.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import hashlib
 import threading
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -54,6 +56,19 @@ from celestia_app_tpu_torch.proof.share_proof import (
 from celestia_app_tpu_torch.serve import ForestCache, ProofSampler
 from celestia_app_tpu_torch.serve.sampler import BadProofDetected
 from celestia_app_tpu_torch.serve.verify import leaf_digests, verify_mode, verify_proofs
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_programs():
+    """Free the JAX programs compiled while this module ran, when it ends:
+    each loaded XLA:CPU executable holds hundreds to thousands of memory
+    mappings, and a test worker that keeps every module's programs can
+    reach the kernel's per-process map limit, where the next compile
+    aborts."""
+    yield
+    jax.clear_caches()
+    gc.collect()
+
 
 CONSTRUCTIONS = ("vandermonde", "leopard")
 

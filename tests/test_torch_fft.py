@@ -12,6 +12,9 @@ encode_core, encode_fn) follows the JAX rules.
 
 from __future__ import annotations
 
+import gc
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +28,19 @@ from celestia_app_tpu_torch.gf import fft as gf_fft
 from celestia_app_tpu_torch.gf.leopard import cantor_basis, leopard_field
 from celestia_app_tpu_torch.gf.rs import RSCodec, codec_for_width
 from celestia_app_tpu_torch.kernels import fft, rs
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_programs():
+    """Free the JAX programs compiled while this module ran, when it ends:
+    each loaded XLA:CPU executable holds hundreds to thousands of memory
+    mappings, and a test worker that keeps every module's programs can
+    reach the kernel's per-process map limit, where the next compile
+    aborts."""
+    yield
+    jax.clear_caches()
+    gc.collect()
+
 
 CPU = torch.device("cpu")
 CUDA = torch.device("cuda")  # a device object only: nothing here runs on it

@@ -7,10 +7,12 @@ match the committed generator pins (tests/golden/generators.json).
 
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
 import os
 
+import jax
 import numpy as np
 import pytest
 
@@ -19,6 +21,19 @@ from celestia_app_tpu.gf import leopard as jax_leopard
 from celestia_app_tpu.gf.rs import RSCodec as JaxRSCodec
 from celestia_app_tpu_torch.gf import field, leopard
 from celestia_app_tpu_torch.gf.rs import RSCodec, active_construction, codec_for_width
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_programs():
+    """Free the JAX programs compiled while this module ran, when it ends:
+    each loaded XLA:CPU executable holds hundreds to thousands of memory
+    mappings, and a test worker that keeps every module's programs can
+    reach the kernel's per-process map limit, where the next compile
+    aborts."""
+    yield
+    jax.clear_caches()
+    gc.collect()
+
 
 _GOLDENS = json.load(
     open(os.path.join(os.path.dirname(__file__), "golden", "generators.json"))

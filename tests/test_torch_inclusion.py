@@ -9,9 +9,11 @@ the port extended, the memo's cap and its use from several threads,
 
 from __future__ import annotations
 
+import gc
 import sys
 import threading
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -39,6 +41,19 @@ from celestia_app_tpu_torch.shares import Blob, Namespace
 from celestia_app_tpu_torch.square import Builder
 from celestia_app_tpu_torch.square.layout import next_share_index, subtree_width
 from celestia_app_tpu_torch.tx.envelopes import BlobTx
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_programs():
+    """Free the JAX programs compiled while this module ran, when it ends:
+    each loaded XLA:CPU executable holds hundreds to thousands of memory
+    mappings, and a test worker that keeps every module's programs can
+    reach the kernel's per-process map limit, where the next compile
+    aborts."""
+    yield
+    jax.clear_caches()
+    gc.collect()
+
 
 
 def blob_pair(tag: int, size: int, seed: int) -> tuple[Blob, JaxBlob]:

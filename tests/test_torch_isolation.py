@@ -1,8 +1,8 @@
 """The port imports nothing of JAX and nothing of the JAX package.
 
-Two checks: every module of celestia_app_tpu_torch imported in a fresh
-interpreter leaves neither `jax` nor any `celestia_app_tpu.*` module in
-sys.modules, and no source of the port (nor chip_smoke.py) names one in an
+Two checks: every module of celestia_app_tpu_torch (the multi-device plane
+included) imported in a fresh interpreter leaves neither `jax` nor any
+`celestia_app_tpu.*` module in sys.modules, and no source of the port (nor chip_smoke.py) names one in an
 import statement, including imports inside functions.
 """
 
@@ -46,7 +46,8 @@ def test_importing_every_port_module_loads_no_jax():
     assert "celestia_app_tpu_torch.da.repair" in result["imported"]
     assert "celestia_app_tpu_torch.serve.verify" in result["imported"]
     for name in ("inclusion.batched", "inclusion.commitment", "proof.querier",
-                 "bridge.worker", "bridge.client"):
+                 "bridge.worker", "bridge.client", "parallel.mesh", "parallel.sharded_eds",
+                 "parallel.sharded_repair", "kernels.panel_sharded", "serve.shard"):
         assert f"celestia_app_tpu_torch.{name}" in result["imported"]
     assert result["forbidden"] == []
 

@@ -3,6 +3,8 @@ the JAX package's device functions and its host hashers."""
 
 from __future__ import annotations
 
+import gc
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +19,19 @@ from celestia_app_tpu_torch import merkle as host_merkle
 from celestia_app_tpu_torch.constants import PARITY_NAMESPACE_BYTES
 from celestia_app_tpu_torch.kernels import nmt
 from celestia_app_tpu_torch.kernels.merkle import merkle_root_pow2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_programs():
+    """Free the JAX programs compiled while this module ran, when it ends:
+    each loaded XLA:CPU executable holds hundreds to thousands of memory
+    mappings, and a test worker that keeps every module's programs can
+    reach the kernel's per-process map limit, where the next compile
+    aborts."""
+    yield
+    jax.clear_caches()
+    gc.collect()
+
 
 _PARITY = np.frombuffer(PARITY_NAMESPACE_BYTES, dtype=np.uint8)
 

@@ -14,9 +14,11 @@ where its compiles are cheap.
 
 from __future__ import annotations
 
+import gc
 import threading
 import time
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -54,6 +56,19 @@ from celestia_app_tpu_torch.parallel.pipeline import (
 )
 from celestia_app_tpu_torch.serve import ForestCache
 from celestia_app_tpu_torch.trace import journal
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_programs():
+    """Free the JAX programs compiled while this module ran, when it ends:
+    each loaded XLA:CPU executable holds hundreds to thousands of memory
+    mappings, and a test worker that keeps every module's programs can
+    reach the kernel's per-process map limit, where the next compile
+    aborts."""
+    yield
+    jax.clear_caches()
+    gc.collect()
+
 
 MIN_DAH_HASH = "3d96b7d238e7e0456f6af8e7cdf0a67bd6cf9c2089ecb559c659dcaa1f880353"
 K2_HASH = "b56e4d251ac266f4b91cc5464b3fc7efcbdc888064647496d13133f0dc65ac25"

@@ -15,6 +15,7 @@ a worker is bounded by a time limit.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import hashlib
 import json
 import os
@@ -26,6 +27,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -40,6 +42,19 @@ from celestia_app_tpu_torch.proof import querier
 from celestia_app_tpu_torch.shares import Blob, Namespace
 from celestia_app_tpu_torch.square import construct
 from celestia_app_tpu_torch.tx.envelopes import BlobTx
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_programs():
+    """Free the JAX programs compiled while this module ran, when it ends:
+    each loaded XLA:CPU executable holds hundreds to thousands of memory
+    mappings, and a test worker that keeps every module's programs can
+    reach the kernel's per-process map limit, where the next compile
+    aborts."""
+    yield
+    jax.clear_caches()
+    gc.collect()
+
 
 ROOT = Path(__file__).resolve().parent.parent
 WORKER = [sys.executable, "-m", "celestia_app_tpu_torch.bridge.worker"]

@@ -10,8 +10,10 @@ cases share few of them.
 
 from __future__ import annotations
 
+import gc
 import importlib
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -33,6 +35,19 @@ from celestia_app_tpu_torch.da import (
 )
 from celestia_app_tpu_torch.gf.rs import codec_for_width
 from celestia_app_tpu_torch.kernels.rs import decode_axis_fn
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_programs():
+    """Free the JAX programs compiled while this module ran, when it ends:
+    each loaded XLA:CPU executable holds hundreds to thousands of memory
+    mappings, and a test worker that keeps every module's programs can
+    reach the kernel's per-process map limit, where the next compile
+    aborts."""
+    yield
+    jax.clear_caches()
+    gc.collect()
+
 
 CONSTRUCTIONS = ("vandermonde", "leopard")
 # The module, which da/__init__ shadows with its `repair` function.

@@ -9,6 +9,9 @@ plain versions in tests/test_torch_cuda.py and chip_smoke.py.
 
 from __future__ import annotations
 
+import gc
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +25,19 @@ from celestia_app_tpu_torch.convert import codec_tensors, pack_generator_words
 from celestia_app_tpu_torch.gf.rs import RSCodec
 from celestia_app_tpu_torch.kernels.rs import encode_axis, encode_axis_xor, encode_fn
 from celestia_app_tpu_torch.kernels.rs_xor import pack_data_words
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_programs():
+    """Free the JAX programs compiled while this module ran, when it ends:
+    each loaded XLA:CPU executable holds hundreds to thousands of memory
+    mappings, and a test worker that keeps every module's programs can
+    reach the kernel's per-process map limit, where the next compile
+    aborts."""
+    yield
+    jax.clear_caches()
+    gc.collect()
+
 
 
 def _tensors(k: int, construction: str):

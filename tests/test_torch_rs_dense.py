@@ -11,6 +11,9 @@ with the plain version in tests/test_torch_cuda.py and chip_smoke.py.
 
 from __future__ import annotations
 
+import gc
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +24,19 @@ from celestia_app_tpu_torch.convert import codec_tensors
 from celestia_app_tpu_torch.gf.rs import RSCodec
 from celestia_app_tpu_torch.kernels import rs_dense
 from celestia_app_tpu_torch.kernels.rs import encode_axis
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_programs():
+    """Free the JAX programs compiled while this module ran, when it ends:
+    each loaded XLA:CPU executable holds hundreds to thousands of memory
+    mappings, and a test worker that keeps every module's programs can
+    reach the kernel's per-process map limit, where the next compile
+    aborts."""
+    yield
+    jax.clear_caches()
+    gc.collect()
+
 
 
 @pytest.mark.parametrize("k", [1, 2, 4, 16])

@@ -10,8 +10,10 @@ with these plain versions in tests/test_torch_cuda.py and chip_smoke.py.
 
 from __future__ import annotations
 
+import gc
 import hashlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,6 +30,19 @@ from celestia_app_tpu_torch.kernels.sha256 import (
     sha256_leaves,
     sha256_leaves_plain,
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_programs():
+    """Free the JAX programs compiled while this module ran, when it ends:
+    each loaded XLA:CPU executable holds hundreds to thousands of memory
+    mappings, and a test worker that keeps every module's programs can
+    reach the kernel's per-process map limit, where the next compile
+    aborts."""
+    yield
+    jax.clear_caches()
+    gc.collect()
+
 
 
 def _msgs(n: int, length: int, seed: int) -> np.ndarray:

@@ -7,6 +7,9 @@ is the JAX twin).  On the CPU, with device="cpu".
 
 from __future__ import annotations
 
+import gc
+
+import jax
 import numpy as np
 import pytest
 import torch
@@ -21,6 +24,19 @@ from celestia_app_tpu_torch.da.eds import (
     speculator,
 )
 from celestia_app_tpu_torch.trace import journal
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_programs():
+    """Free the JAX programs compiled while this module ran, when it ends:
+    each loaded XLA:CPU executable holds hundreds to thousands of memory
+    mappings, and a test worker that keeps every module's programs can
+    reach the kernel's per-process map limit, where the next compile
+    aborts."""
+    yield
+    jax.clear_caches()
+    gc.collect()
+
 
 K2_HASH = "b56e4d251ac266f4b91cc5464b3fc7efcbdc888064647496d13133f0dc65ac25"
 

@@ -6,8 +6,10 @@ blocks, and the DAH of `extend_block` under each pipeline mode.
 
 from __future__ import annotations
 
+import gc
 from dataclasses import astuple
 
+import jax
 import numpy as np
 import pytest
 
@@ -28,6 +30,19 @@ from celestia_app_tpu_torch.encoding import proto
 from celestia_app_tpu_torch.shares import Blob, Namespace, parse_compact_shares, split_blob
 from celestia_app_tpu_torch.square import SquareOverflow, build, construct
 from celestia_app_tpu_torch.tx import envelopes as env
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_programs():
+    """Free the JAX programs compiled while this module ran, when it ends:
+    each loaded XLA:CPU executable holds hundreds to thousands of memory
+    mappings, and a test worker that keeps every module's programs can
+    reach the kernel's per-process map limit, where the next compile
+    aborts."""
+    yield
+    jax.clear_caches()
+    gc.collect()
+
 
 
 def _blob_size(rng, shares: int) -> int:
