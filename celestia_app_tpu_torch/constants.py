@@ -1,4 +1,5 @@
-"""Protocol constants the block-square path and the square builder use.
+"""Protocol constants of the block-square path, the square builder and the
+ABCI proposal path (app/, modules/, tx/).
 
 A copy of the values in celestia_app_tpu/constants (reference
 pkg/appconsts/global_consts.go); they cannot change during the lifetime of
@@ -41,3 +42,17 @@ NMT_NODE_SIZE = 2 * NAMESPACE_SIZE + HASH_LENGTH  # 90: minNs || maxNs || digest
 SQUARE_SIZE_UPPER_BOUND = 128
 # The largest ODS width the codec accepts (GF(2^16) codewords to 8192).
 MAX_CODEC_SQUARE_SIZE = 4096
+
+# App versions (pkg/appconsts v1/v2).
+V1_VERSION = 1
+V2_VERSION = 2
+LATEST_VERSION = V2_VERSION
+
+# Initial, governance-modifiable params (pkg/appconsts/initial_consts.go).
+DEFAULT_GOV_MAX_SQUARE_SIZE = 64
+DEFAULT_GAS_PER_BLOB_BYTE = 8
+BOND_DENOM = "utia"
+
+# The linear PFB gas model (x/blob/types/payforblob.go).
+PFB_GAS_FIXED_COST = 75_000
+BYTES_PER_BLOB_INFO = 70

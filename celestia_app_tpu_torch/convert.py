@@ -1,9 +1,14 @@
-"""The codec's constant generator, carried onto a device.
+"""What the port carries over from elsewhere: the codec's constant
+generator onto a device, and a chain's state into an App.
 
 The block-square path has no trained state: its only constant is the RS
 generator, bit-expanded by gf/field.expand_bit_matrix (symbol-major rows and
-columns, bit t of byte b of a symbol LSB-first).  This module turns that
+columns, bit t of byte b of a symbol LSB-first).  `codec_tensors` turns that
 (P*m, n*m) 0/1 matrix into the two forms the RS kernels read.
+
+The App's state is plain bytes: `app_from_export` starts a port App from the
+(key, value) pairs a committed store exports (the JAX package's
+`CommitStore.export()`), so both packages can go on from one state.
 """
 
 from __future__ import annotations
@@ -65,3 +70,24 @@ def bits_tensor(bits: np.ndarray, device: str | torch.device) -> torch.Tensor:
     padded = np.zeros((rows, -(-cols // 16) * 16), dtype=np.int8)
     padded[:, :cols] = bits
     return torch.from_numpy(padded).to(device)[:, :cols]
+
+
+def app_from_export(items, *, chain_id: str, app_version: int, height: int,
+                    genesis_time_ns: int, last_block_time_ns: int, device=None):
+    """A port App (app/app.App on `device`, default CUDA) whose working store
+    holds the (key, value) byte pairs `items` (a dict or an iterable of
+    pairs), committed at `height`, with the chain's coordinates set as the
+    exporting app had them; its next proposal is for height + 1."""
+    from celestia_app_tpu_torch.app import App
+    from celestia_app_tpu_torch.state.store import KVStore
+
+    app = App(device=device)
+    pairs = items.items() if isinstance(items, dict) else items
+    app.cms.working = KVStore({bytes(k): bytes(v) for k, v in pairs})
+    app.cms.commit(height)
+    app.chain_id = chain_id
+    app.app_version = app_version
+    app.height = height
+    app.genesis_time_ns = genesis_time_ns
+    app.last_block_time_ns = last_block_time_ns
+    return app

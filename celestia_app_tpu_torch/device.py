@@ -9,11 +9,17 @@ one-shot calls and the streaming ring (parallel/pipeline.py) both stage
 through pinned memory and copy with `non_blocking=True` on a stream the
 caller names.  `hand_over` is its other end for results made on a side
 stream and read on the caller's.
+
+`on_device` marks the calls whose faults belong to the card rather than to
+their input: whatever such a call raises comes out as `DeviceFault`, which
+callers that judge input (ProcessProposal, app/app.py) let through instead
+of reading it as a verdict on that input.
 """
 
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -21,6 +27,23 @@ import torch
 #: Bytes per host-to-device chunk: the memcpy of chunk i+1 into pinned
 #: memory runs on the host while the copy engine moves chunk i.
 CHUNK_BYTES = 32 << 20
+
+
+class DeviceFault(RuntimeError):
+    """A call on the device failed: a kernel that did not build or launch,
+    a CUDA error, device memory exhausted.  The original error is the
+    cause."""
+
+
+@contextmanager
+def on_device(what: str):
+    """Re-raise anything the body raises as a DeviceFault naming `what`."""
+    try:
+        yield
+    except DeviceFault:
+        raise
+    except Exception as e:
+        raise DeviceFault(f"{what} failed on the device: {e!r}") from e
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:

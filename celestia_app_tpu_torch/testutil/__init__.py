@@ -1,0 +1,15 @@
+from celestia_app_tpu_torch.testutil.testnode import (
+    BLOCK_INTERVAL_NS,
+    DEFAULT_BALANCE,
+    GENESIS_TIME_NS,
+    deterministic_genesis,
+    funded_keys,
+)
+
+__all__ = [
+    "BLOCK_INTERVAL_NS",
+    "DEFAULT_BALANCE",
+    "GENESIS_TIME_NS",
+    "deterministic_genesis",
+    "funded_keys",
+]

@@ -1,6 +1,34 @@
-"""Observability of the port: for now only the block journal (journal.py).
+"""Observability of the port.
+
+  journal.py    the block journal: one row per extend or streamed block.
+  context.py    trace contexts and `trace_span` (event row + histogram +
+                OTLP-shaped span row per finished span).
+  tracer.py     the columnar event tables (`traced()`).
+  metrics.py    the Prometheus-style registry (`registry()`).
+  spans.py      the OTLP span table and the end-to-end phase histogram.
 
 The JAX package's trace layer (celestia_app_tpu/trace/) also has the
-Prometheus registry, the profiler window, the SLO engine, spans and the
-trace context; they come over with the node integration (ROADMAP, queue 1).
+height timeline, the profiler window, the SLO engine, the flight
+recorder, the exposition and the fleet plane; they come over with the
+node integration (ROADMAP, queue 1).
 """
+
+from celestia_app_tpu_torch.trace.context import (
+    TraceContext,
+    current_context,
+    new_context,
+    trace_span,
+    use_context,
+)
+from celestia_app_tpu_torch.trace.tracer import Tracer, trace_enabled, traced
+
+__all__ = [
+    "TraceContext",
+    "Tracer",
+    "current_context",
+    "new_context",
+    "trace_enabled",
+    "trace_span",
+    "traced",
+    "use_context",
+]

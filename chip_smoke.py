@@ -56,9 +56,11 @@ Phases, in order; any failure raises and the script exits non-zero:
              built on the default stream while the pipeline runs, equal to
              the one-shot forests; a speculation hit and a discard; the
              ring's swap of a pinned slot;
- 10. commitments, 11. querier, 12. bridge: the consensus-side entry points
-             (each phase's docstring says what it checks);
- 13. giant   k=1024 and k=2048 (GF(2^16)): the materializing fused, epi and
+ 10. commitments, 11. app, 12. querier, 13. bridge: the consensus-side
+             entry points, the ABCI App's CheckTx / PrepareProposal /
+             ProcessProposal among them (each phase's docstring says what it
+             checks);
+ 14. giant   k=1024 and k=2048 (GF(2^16)): the materializing fused, epi and
              XOR lowerings and the panel-streamed one ($CELESTIA_PIPE_PANEL:
              64-row panels, 48-row panels at k=1024, the FFT column leg):
              one data root and one EDS per k, the roots-only twins, 64
@@ -66,7 +68,7 @@ Phases, in order; any failure raises and the script exits non-zero:
              lowering as counted from the code, wall and device time and
              peak memory per lowering, a k=1024 BlockPipeline under panel
              mode (batch 1, 16 panels per square);
- 14. mesh    the multi-device plane on 4 logical shards of cuda:0, each with
+ 15. mesh    the multi-device plane on 4 logical shards of cuda:0, each with
              its own stream (and again over the real cards where there are
              two or more): the k=512 sharded extend over 2 and 4 shards and
              its DAH-only twin == single-card compute, sharded repair with
@@ -1466,6 +1468,314 @@ def phase_commitments(torch, card: str) -> dict:
     return counts
 
 
+# phase_app's chains (testutil.deterministic_genesis) and blocks
+# (testutil.blocks.block_txs): a small golden block whose data root
+# tests/test_torch_app.py pins from the JAX App, a k=128 block (the v3 cap)
+# and a k=512 block under the big-block override.
+APP_GOLDEN_HASH = "8791374a3d404fe00ebe222e097227c221505eaaf67ce4334c7280a00986c643"
+APP_GOLDEN = {"n_keys": 4, "seed": 10, "sends": 3, "pfbs": 3, "blob_shares": (1, 4)}
+APP_K = 128
+APP_BLOCK = {"n_keys": 256, "seed": 128, "sends": 200, "pfbs": 320, "blob_shares": (20, 60)}
+APP_BIG_K = 512
+APP_BIG = {"n_keys": 256, "seed": 512, "sends": 100, "pfbs": 600, "blob_shares": (100, 150)}
+
+
+def app_chain(spec: dict, gov_max_square_size: int):
+    """(genesis, raw txs): a deterministic chain and one block of it."""
+    from celestia_app_tpu_torch.testutil import deterministic_genesis, funded_keys
+    from celestia_app_tpu_torch.testutil.blocks import block_txs
+
+    keys = funded_keys(spec["n_keys"])
+    genesis = deterministic_genesis(keys, gov_max_square_size=gov_max_square_size)
+    txs = block_txs(keys, genesis.chain_id, seed=spec["seed"], sends=spec["sends"],
+                    pfbs=spec["pfbs"], blob_shares=spec["blob_shares"])
+    return genesis, txs
+
+
+def fresh_app(genesis, **kwargs):
+    from celestia_app_tpu_torch.app import App
+
+    app = App(**kwargs)
+    app.init_chain(genesis)
+    return app
+
+
+class Split:
+    """Host ms spent inside named callables while `timing` is active (each
+    replaced by a timing wrapper, then restored)."""
+
+    def __init__(self, targets):
+        self.targets = targets  # (owner, attribute, label)
+        self.ms: dict[str, float] = {}
+
+    def _timed(self, fn, label: str):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.ms[label] = self.ms.get(label, 0.0) + (time.perf_counter() - t0) * 1e3
+        return timed
+
+    @contextlib.contextmanager
+    def timing(self):
+        with contextlib.ExitStack() as stack:
+            for owner, name, label in self.targets:
+                stack.enter_context(swapped(owner, name, self._timed(getattr(owner, name), label)))
+            yield self
+
+
+def app_split():
+    from celestia_app_tpu_torch.app import app as app_mod
+    from celestia_app_tpu_torch.crypto.keys import PublicKey
+    from celestia_app_tpu_torch.square import builder
+
+    return Split([
+        (app_mod, "run_ante", "ante"),
+        (PublicKey, "verify", "of which signature verify"),
+        (app_mod, "validate_blob_tx", "blob validation"),
+        (app_mod, "validate_blob_txs_batched", "blob validation"),
+        (builder, "build", "square build"),
+        (builder, "construct", "square build"),
+        (app_mod.App, "_square_root", "extend + DAH (+ memo key)"),
+    ])
+
+
+def app_call(torch, fn):
+    """(result, wall ms, launches, split ms) of one `fn()` with the
+    commitment memo cleared first, ended by a synchronize."""
+    from celestia_app_tpu_torch.inclusion import batched
+    from celestia_app_tpu_torch.kernels import _build
+
+    batched._COMMIT_MEMO.clear()
+    split = app_split()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with split.timing():
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, dict(_build.LAUNCHES), split.ms
+
+
+def describe_split(wall: float, split: dict) -> str:
+    known = sum(v for k, v in split.items() if not k.startswith("of which"))
+    parts = [f"{k} {v:.3f}" for k, v in split.items()]
+    return f"{', '.join(parts)}, other (decode, classify) {wall - known:.3f} ms"
+
+
+def block_blobs(txs) -> list:
+    from celestia_app_tpu_torch.tx.envelopes import unmarshal_blob_tx
+
+    return [b for t in txs if (btx := unmarshal_blob_tx(t)) is not None for b in btx.blobs]
+
+
+def phase_app(torch, card: str) -> dict:
+    """The ABCI proposal path: App.check_tx / prepare_proposal /
+    process_proposal on the card, the chain built by the port's testutil.
+    The golden block's data root == the JAX App's (pinned); the k=128 block:
+    check_tx admits every tx, the card's BlockData == App(device="cpu")'s
+    and its hash == the CPU extend_shares root, a non-proposer App accepts
+    it and rejects a flipped blob byte, a wrong hash and a wrong square
+    size; launches per Prepare and per non-proposer Process == one
+    commitment batch + one extend (memo cleared); wall (median of 3) and its
+    split, device busy and idle; one Prepare under CELESTIA_PIPE_FUSED=epi;
+    an injected launch fault raises DeviceFault out of process_proposal (in
+    the commitments, then in the extend); a k=512 block under
+    square_size_upper_bound=512.  Returns the launches per Prepare and per
+    Process."""
+    from celestia_app_tpu_torch.app import BlockData
+    from celestia_app_tpu_torch.da import extend_shares
+    from celestia_app_tpu_torch.device import DeviceFault
+    from celestia_app_tpu_torch.kernels import _build
+    from celestia_app_tpu_torch.shares import Blob
+    from celestia_app_tpu_torch.square import builder
+    from celestia_app_tpu_torch.tx.envelopes import BlobTx, unmarshal_blob_tx
+
+    def same(a, b) -> bool:
+        return (a.txs, a.square_size, a.hash) == (b.txs, b.square_size, b.hash)
+
+    # 1. The golden block.
+    genesis, txs = app_chain(APP_GOLDEN, 64)
+    got = fresh_app(genesis).prepare_proposal(txs)
+    on_cpu = fresh_app(genesis, device="cpu").prepare_proposal(txs)
+    if got.hash.hex() != APP_GOLDEN_HASH or len(got.txs) != len(txs) or not same(got, on_cpu):
+        raise AssertionError(f"golden block: {got.hash.hex()} k={got.square_size} "
+                             f"{len(got.txs)} txs, want {APP_GOLDEN_HASH} ({len(txs)} txs); "
+                             f"CPU {on_cpu.hash.hex()}")
+    log(f"[{card}] app golden block: {len(txs)} txs, k={got.square_size}, data root "
+        f"{got.hash.hex()} == the pinned JAX App root == App(device='cpu')")
+
+    # 2. The k=128 block.
+    t0 = time.perf_counter()
+    genesis, txs = app_chain(APP_BLOCK, APP_K)
+    blobs = block_blobs(txs)
+    n_pfbs = sum(unmarshal_blob_tx(t) is not None for t in txs)
+    log(f"[{card}] app k={APP_K} block: {len(txs) - n_pfbs} sends + {n_pfbs} PFBs "
+        f"({len(blobs)} blobs, {sum(len(b.data) for b in blobs) / 1e6:.3f} MB), "
+        f"{APP_BLOCK['n_keys']} keys; keys, signatures and host commitments "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    check = []
+    for _ in range(3):
+        app = fresh_app(genesis)
+        per_tx, codes = [], []
+
+        def admit_all():
+            for t in txs:
+                t1 = time.perf_counter()
+                codes.append(app.check_tx(t).code)
+                per_tx.append((time.perf_counter() - t1) * 1e3)
+        _, ms, _, split = app_call(torch, admit_all)
+        if any(codes):
+            bad = [(i, c) for i, c in enumerate(codes) if c]
+            raise AssertionError(f"check_tx rejected {len(bad)} txs: {bad[:8]}")
+        is_pfb = [unmarshal_blob_tx(t) is not None for t in txs]
+        check.append((ms, float(np.median([m for m, p in zip(per_tx, is_pfb) if not p])),
+                      float(np.median([m for m, p in zip(per_tx, is_pfb) if p])), split))
+    check.sort(key=lambda c: c[0])
+    ms, send_ms, pfb_ms, split = check[1]
+    log(f"[{card}] app check_tx: all {len(txs)} admitted; {ms:.3f} ms for all (median of "
+        f"{[round(c[0], 3) for c in check]}), {ms / len(txs):.3f} ms per tx, median "
+        f"{send_ms:.3f} ms per send, {pfb_ms:.3f} ms per PFB (commitment memo cleared "
+        f"before each run); split: {describe_split(ms, split)}")
+
+    prepares = [app_call(torch, (lambda a=fresh_app(genesis): a.prepare_proposal(txs)))
+                for _ in range(3)]
+    data = prepares[0][0]
+    for p in prepares:
+        if not same(p[0], data):
+            raise AssertionError("two Prepares of one block differ")
+    if data.square_size != APP_K or len(data.txs) != len(txs):
+        raise AssertionError(f"Prepare kept {len(data.txs)} of {len(txs)} txs in a "
+                             f"k={data.square_size} square, want all in k={APP_K}")
+    t0 = time.perf_counter()
+    on_cpu = fresh_app(genesis, device="cpu").prepare_proposal(txs)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    sq = builder.construct(list(data.txs), APP_K)
+    cpu_root = extend_shares(sq.share_bytes(), device="cpu").data_root()
+    if not same(on_cpu, data) or cpu_root != data.hash:
+        raise AssertionError(f"k={APP_K} Prepare: card {data.hash.hex()}, App(device='cpu') "
+                             f"{on_cpu.hash.hex()}, CPU extend_shares {cpu_root.hex()}")
+    _build.reset_launches()
+    extend_shares(sq.share_bytes()).data_root()
+    want = {name: n + dict(_build.LAUNCHES)[name]
+            for name, n in expected_commitment_launches(blobs).items()}
+    for name in ("rs_xor", "rs_dense_leaf"):
+        want[name] = 0
+    check_launches(f"Prepare k={APP_K}", prepares[0][2], want)
+    prepares.sort(key=lambda p: p[1])
+    _, ms, launches, split = prepares[1]
+    log(f"[{card}] app Prepare k={APP_K}: BlockData == App(device='cpu') ({cpu_ms:.3f} ms "
+        f"on the CPU), hash {data.hash.hex()} == CPU extend_shares; {ms:.3f} ms (median of "
+        f"{[round(p[1], 3) for p in prepares]}); split: {describe_split(ms, split)}; "
+        f"launches {launches} == one commitment batch + one extend")
+
+    processes = [app_call(torch, (lambda a=fresh_app(genesis): a.process_proposal(data)))
+                 for _ in range(3)]
+    if not all(p[0] is True for p in processes):
+        raise AssertionError(f"a non-proposer rejected the k={APP_K} proposal")
+    check_launches(f"non-proposer Process k={APP_K}", processes[0][2], want)
+    processes.sort(key=lambda p: p[1])
+    _, ms, launches, split = processes[1]
+    log(f"[{card}] app non-proposer Process k={APP_K}: accepted; {ms:.3f} ms (median of "
+        f"{[round(p[1], 3) for p in processes]}); split: {describe_split(ms, split)}; "
+        f"launches {launches}")
+
+    # Three tampered proposals, on a non-proposer that accepted the block.
+    validator = fresh_app(genesis)
+    if not validator.process_proposal(data):
+        raise AssertionError("the validator rejected the honest proposal")
+    i = next(i for i, t in enumerate(data.txs) if unmarshal_blob_tx(t) is not None)
+    btx = unmarshal_blob_tx(data.txs[i])
+    blob = btx.blobs[0]
+    flipped = Blob(blob.namespace, blob.data[:-1] + bytes([blob.data[-1] ^ 1]), blob.share_version)
+    evil = BlobTx(btx.tx, (flipped,) + tuple(btx.blobs[1:])).marshal()
+    tampered = {
+        "a blob byte flipped": BlockData(data.txs[:i] + (evil,) + data.txs[i + 1:],
+                                         data.square_size, data.hash),
+        "a wrong hash": BlockData(data.txs, data.square_size,
+                                  bytes([data.hash[0] ^ 1]) + data.hash[1:]),
+        "a wrong square size": BlockData(data.txs, 2 * data.square_size, data.hash),
+    }
+    for what, bad in tampered.items():
+        if validator.process_proposal(bad) is not False:
+            raise AssertionError(f"the validator accepted a proposal with {what}")
+    log(f"[{card}] app: the non-proposer rejects {', '.join(tampered)}")
+
+    # Device busy and idle, and the host's functions, over one call each.
+    from celestia_app_tpu_torch.inclusion import batched
+
+    for label, make in (("Prepare", lambda a: (lambda: a.prepare_proposal(txs))),
+                        ("non-proposer Process", lambda a: (lambda: a.process_proposal(data)))):
+        batched._COMMIT_MEMO.clear()
+        device_breakdown(torch, make(fresh_app(genesis)), card, f"app {label} k={APP_K}")
+    batched._COMMIT_MEMO.clear()
+    host_breakdown(torch, (lambda a=fresh_app(genesis): a.prepare_proposal(txs)), card,
+                   f"app Prepare k={APP_K}", top=12)
+
+    # One Prepare under the epilogue lowering.
+    with environment({"CELESTIA_PIPE_FUSED": "epi"}):
+        epi, epi_ms, epi_launches, _ = app_call(
+            torch, (lambda a=fresh_app(genesis): a.prepare_proposal(txs)))
+    if not same(epi, data) or epi_launches["rs_dense_leaf"] < 1:
+        raise AssertionError(f"Prepare under CELESTIA_PIPE_FUSED=epi: {epi.hash.hex()}, "
+                             f"launches {epi_launches}")
+    log(f"[{card}] app Prepare k={APP_K} under CELESTIA_PIPE_FUSED=epi: the same BlockData, "
+        f"{epi_ms:.3f} ms, launches {epi_launches}")
+
+    # An injected launch fault raises out of process_proposal: first in the
+    # commitments (memo cleared), then in the extend (memo warm).
+    def failing_launch(kernel, *args, **kwargs):
+        raise RuntimeError(f"injected launch fault in {kernel}")
+
+    for where, memo_warm, names in (("the commitments", False, "blob share commitments"),
+                                    ("the extend", True, "extend + DAH")):
+        app = fresh_app(genesis)
+        batched._COMMIT_MEMO.clear()
+        if memo_warm:
+            batched.create_commitments_batched(blobs)
+        try:
+            with swapped(_build, "launch", failing_launch):
+                verdict = app.process_proposal(data)
+        except DeviceFault as e:
+            if "injected launch fault" not in repr(e.__cause__) or names not in str(e):
+                raise AssertionError(f"not the injected fault in {where}: {e!r}") from e
+            log(f"[{card}] app: an injected launch fault in {where} raises {e!r}")
+        else:
+            raise AssertionError(f"process_proposal returned {verdict} on a launch fault "
+                                 f"in {where}")
+
+    # The big-block override: k=512.
+    t0 = time.perf_counter()
+    big_genesis, big_txs = app_chain(APP_BIG, APP_BIG_K)
+    made_s = time.perf_counter() - t0
+    big, big_ms, big_launches, big_split = app_call(
+        torch, (lambda a=fresh_app(big_genesis, square_size_upper_bound=APP_BIG_K):
+                a.prepare_proposal(big_txs)))
+    if big.square_size != APP_BIG_K or len(big.txs) != len(big_txs):
+        raise AssertionError(f"k={APP_BIG_K} Prepare kept {len(big.txs)} of {len(big_txs)} "
+                             f"txs in a k={big.square_size} square")
+    big_sq = builder.construct(list(big.txs), APP_BIG_K)
+    big_root = extend_shares(big_sq.share_bytes(), device="cpu").data_root()
+    accepted, big_process_ms, big_process_launches, big_process_split = app_call(
+        torch, (lambda a=fresh_app(big_genesis, square_size_upper_bound=APP_BIG_K):
+                a.process_proposal(big)))
+    if big_root != big.hash or accepted is not True:
+        raise AssertionError(f"k={APP_BIG_K}: card {big.hash.hex()}, CPU extend_shares "
+                             f"{big_root.hex()}, non-proposer verdict {accepted}")
+    log(f"[{card}] app k={APP_BIG_K} block (square_size_upper_bound={APP_BIG_K}): "
+        f"{len(big_txs)} txs ({made_s:.3f} s to make), {big_sq.accounting.used_shares} shares "
+        f"used; hash == CPU extend_shares; Prepare {big_ms:.3f} ms ({describe_split(big_ms, big_split)}), "
+        f"launches {big_launches}; non-proposer Process accepted, {big_process_ms:.3f} ms "
+        f"({describe_split(big_process_ms, big_process_split)}), launches {big_process_launches}")
+    for label, n in (("Prepare", big_launches), ("Process", big_process_launches)):
+        check_launches(f"{label} k={APP_BIG_K}", n,
+                       {"sha256_leaf": None, "sha256": None, "rs_dense": None})
+    return {"prepare": prepares[1][2], "process": processes[1][2]}
+
+
 class StubApp:
     """The querier's view of the app: the square size cap."""
 
@@ -2350,6 +2660,8 @@ def main() -> int:
     phase_done("stream")
     commit_counts = phase_commitments(torch, card)
     phase_done("commitments")
+    app_counts = phase_app(torch, card)
+    phase_done("app")
     query_counts = phase_querier(torch, card)
     phase_done("querier")
     bridge_counts = phase_bridge(torch, card)
@@ -2358,8 +2670,9 @@ def main() -> int:
     phase_done("giant")
     phase_mesh(torch, card, giant)
     phase_done("mesh")
-    log(f"launches: per commitment batch {commit_counts}; per proof query {query_counts}; "
-        f"in the bridge worker over its run {bridge_counts}")
+    log(f"launches: per commitment batch {commit_counts}; per k={APP_K} Prepare "
+        f"{app_counts['prepare']} and non-proposer Process {app_counts['process']}; per proof "
+        f"query {query_counts}; in the bridge worker over its run {bridge_counts}")
 
     # Each kernel's launches on the k=512 path that runs it: the column
     # phase's kernel names the path, the hashing kernels run on every path.

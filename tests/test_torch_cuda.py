@@ -644,3 +644,32 @@ def test_launch_on_the_last_card(cuda):
         _build.launch("sha256", "sha256", "sha256_batch",
                       torch.zeros((2, 64), dtype=torch.uint8, device="cuda:0"), 2, 64,
                       torch.empty((2, 32), dtype=torch.uint8, device=last))
+
+
+def test_app_prepare_process_round_trip_on_card(cuda):
+    """A proposer App and a non-proposer App on the card: the proposer's
+    BlockData equals App(device="cpu")'s, the non-proposer accepts it with
+    the commitments and the extend launched on the card, and rejects a
+    wrong hash."""
+    from celestia_app_tpu_torch.app import App, BlockData
+    from celestia_app_tpu_torch.inclusion import batched
+    from celestia_app_tpu_torch.testutil import deterministic_genesis, funded_keys
+    from celestia_app_tpu_torch.testutil.blocks import block_txs
+
+    keys = funded_keys(8)
+    genesis = deterministic_genesis(keys)
+    txs = block_txs(keys, genesis.chain_id, seed=16, sends=4, pfbs=16, blob_shares=(6, 14))
+    apps = {}
+    for name, device in (("proposer", None), ("validator", None), ("cpu", "cpu")):
+        apps[name] = App(device=device)
+        apps[name].init_chain(genesis)
+    data = apps["proposer"].prepare_proposal(txs)
+    want = apps["cpu"].prepare_proposal(txs)
+    assert (data.txs, data.square_size, data.hash) == (want.txs, want.square_size, want.hash)
+    assert data.square_size == 16 and len(data.txs) == len(txs)
+    batched._COMMIT_MEMO.clear()
+    _build.reset_launches()
+    assert apps["validator"].process_proposal(data) is True
+    assert all(_build.LAUNCHES[k] > 0 for k in ("sha256", "sha256_leaf", "rs_dense"))
+    assert apps["validator"].process_proposal(
+        BlockData(data.txs, data.square_size, bytes(32))) is False

@@ -1,9 +1,11 @@
-"""The port imports nothing of JAX and nothing of the JAX package.
+"""The port imports nothing of JAX, nothing of the JAX package and nothing
+of `cryptography` (the card's machine lacks it; the port's keys are its own).
 
 Two checks: every module of celestia_app_tpu_torch (the multi-device plane
-included) imported in a fresh interpreter leaves neither `jax` nor any
-`celestia_app_tpu.*` module in sys.modules, and no source of the port (nor chip_smoke.py) names one in an
-import statement, including imports inside functions.
+and the ABCI App included) imported in a fresh interpreter leaves no `jax`,
+`celestia_app_tpu.*` or `cryptography` module in sys.modules, and no source
+of the port (nor chip_smoke.py) names one in an import statement, including
+imports inside functions.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "celestia_app_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "celestia_app_tpu")
+FORBIDDEN = ("jax", "jaxlib", "celestia_app_tpu", "cryptography")
 
 _IMPORT_ALL = """
 import importlib, json, pkgutil, sys
@@ -29,7 +31,7 @@ names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "celestia_app_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "celestia_app_tpu", "cryptography"))
 print(json.dumps({"imported": names, "forbidden": bad}))
 """
 
@@ -47,7 +49,10 @@ def test_importing_every_port_module_loads_no_jax():
     assert "celestia_app_tpu_torch.serve.verify" in result["imported"]
     for name in ("inclusion.batched", "inclusion.commitment", "proof.querier",
                  "bridge.worker", "bridge.client", "parallel.mesh", "parallel.sharded_eds",
-                 "parallel.sharded_repair", "kernels.panel_sharded", "serve.shard"):
+                 "parallel.sharded_repair", "kernels.panel_sharded", "serve.shard",
+                 "app.app", "app.ante", "crypto.keys", "crypto.ripemd160", "tx.sign",
+                 "tx.messages", "modules.blob.types", "state.store", "trace.tracer",
+                 "testutil.blocks"):
         assert f"celestia_app_tpu_torch.{name}" in result["imported"]
     assert result["forbidden"] == []
 
