@@ -1,5 +1,5 @@
-"""The ABCI application's proposal half: CheckTx, PrepareProposal and
-ProcessProposal on the port's square path.
+"""The ABCI application: CheckTx, PrepareProposal and ProcessProposal on the
+port's square path, and block execution (FinalizeBlock, Commit, Simulate).
 
 Behavioral parity with the reference app package, as the JAX package's
 celestia_app_tpu/app/app.py holds it:
@@ -9,14 +9,23 @@ celestia_app_tpu/app/app.py holds it:
   ProcessProposal  app/process_proposal.go:24-158  decode/validate every tx,
                                                    reconstruct, compare root
   CheckTx          app/check_tx.go:16-54           BlobTx unwrap + ante
+  Finalize/Commit  app/app.go:446-480              mint + distribution +
+                                                   evidence + liveness
+                                                   BeginBlock, every message
+                                                   handler, gov / unbonding /
+                                                   blobstream (v1) / upgrade
+                                                   EndBlock, state commit
 
 `App(..., device=None)` runs its device work on `device`: the blob share
 commitments (modules/blob/types -> inclusion.batched) and the extend + DAH
 (da.extend_shares); None means CUDA and raises without a card, "cpu" runs
-the plain kernel versions.  Block execution (FinalizeBlock, Commit and the
-message handlers, with the JAX App's `v2_upgrade_height` and
-`ibc_token_filter` options, which only they read) is not ported yet
-(ROADMAP, queue 1).
+the plain kernel versions.  Block execution does no device work: the
+message handlers, the keepers and the commit are host code, a copy of the
+JAX App's, and nothing in finalize_block or commit runs under
+device.on_device, so they raise no DeviceFault.  Their TxResults (code,
+log, gas, events) and app hashes are the JAX App's byte for byte
+(tests/test_torch_finalize.py, tests/test_torch_ibc.py); chip_smoke.py's
+phase_chain runs Prepare -> Process -> Finalize -> Commit on the card.
 
 Two deliberate differences from the JAX App, both because no fallback may
 hide the device:
@@ -26,6 +35,8 @@ hide the device:
   * speculate_proposal returns False only on a mismatch (a square that does
     not build, or whose size or emptiness differs from the proposal's); a
     fault of the speculative extend raises.
+The serve plane's EDS retention (the JAX App's square_eds and
+last_eds_for_root) is not part of the port.
 """
 
 from __future__ import annotations
@@ -36,7 +47,8 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from celestia_app_tpu_torch.app.ante import AnteError, run_ante
-from celestia_app_tpu_torch.app.gas import OutOfGas
+from celestia_app_tpu_torch.app.gas import GasKVStore, OutOfGas
+from celestia_app_tpu_torch.app.module_manager import ModuleManager
 from celestia_app_tpu_torch.constants import (
     CONTINUATION_SPARSE_SHARE_CONTENT_SIZE,
     DEFAULT_GOV_MAX_SQUARE_SIZE,
@@ -52,25 +64,121 @@ from celestia_app_tpu_torch.da import (
 )
 from celestia_app_tpu_torch.da.eds import speculation_enabled, speculator
 from celestia_app_tpu_torch.device import DeviceFault, on_device, resolve_device
+from celestia_app_tpu_torch.modules.authz import AuthzError, AuthzKeeper, Grant
 from celestia_app_tpu_torch.modules.blob.params import BlobParamsKeeper
 from celestia_app_tpu_torch.modules.blob.types import (
     BlobTxError,
+    gas_to_consume,
     validate_blob_tx,
     validate_blob_txs_batched,
 )
+from celestia_app_tpu_torch.modules.blobstream.keeper import (
+    BlobstreamKeeper,
+    set_data_commitment_window,
+)
 from celestia_app_tpu_torch.modules.consensus_params import ConsensusParamsKeeper
+from celestia_app_tpu_torch.modules.crisis import (
+    INVARIANTS,
+    InvariantBroken,
+    assert_invariants,
+)
+from celestia_app_tpu_torch.modules.distribution import (
+    DistributionError,
+    DistributionKeeper,
+)
+from celestia_app_tpu_torch.modules.feegrant import (
+    Allowance,
+    FeegrantError,
+    FeegrantKeeper,
+)
+from celestia_app_tpu_torch.modules.gov import GovKeeper, ParamChange, VoteOption
+from celestia_app_tpu_torch.modules.ibc import (
+    ChannelKeeper,
+    Height,
+    TransferKeeper,
+    build_transfer_stack,
+)
+from celestia_app_tpu_torch.modules.ibc.handshake import (
+    counterparty_proof_time,
+    verify_ack_proof,
+    verify_recv_proof,
+    verify_timeout_proof,
+)
+from celestia_app_tpu_torch.modules.ibc.ica import (
+    CONTROLLER_PORT_PREFIX,
+    ICA_HOST_PORT,
+    ICAHostKeeper,
+    ICAHostModule,
+)
+from celestia_app_tpu_torch.modules.ibc.transfer import ack_is_error
 from celestia_app_tpu_torch.modules.minfee import MinFeeKeeper
 from celestia_app_tpu_torch.modules.mint.minter import Minter
 from celestia_app_tpu_torch.modules.signal.keeper import SignalKeeper
+from celestia_app_tpu_torch.modules.slashing import SlashingError, SlashingKeeper
 from celestia_app_tpu_torch.square import builder as square
-from celestia_app_tpu_torch.state.accounts import AuthKeeper, BankKeeper
+from celestia_app_tpu_torch.state.accounts import (
+    FEE_COLLECTOR,
+    VESTING_CONTINUOUS,
+    VESTING_DELAYED,
+    VESTING_PERIODIC,
+    VESTING_PERMANENT,
+    AuthKeeper,
+    BankKeeper,
+    assert_spendable,
+    send_spendable,
+)
 from celestia_app_tpu_torch.state.dec import Dec
-from celestia_app_tpu_torch.state.staking import StakingKeeper, Validator
+from celestia_app_tpu_torch.state.staking import (
+    POWER_REDUCTION,
+    StakingError,
+    StakingKeeper,
+    Validator,
+)
 from celestia_app_tpu_torch.state.store import CommitStore, KVStore
 from celestia_app_tpu_torch.trace import trace_span, traced
 from celestia_app_tpu_torch.trace.metrics import registry
 from celestia_app_tpu_torch.tx.envelopes import unmarshal_blob_tx
-from celestia_app_tpu_torch.tx.messages import MsgPayForBlobs
+from celestia_app_tpu_torch.tx.messages import (
+    MsgAcknowledgement,
+    MsgAuthzExec,
+    MsgAuthzGrant,
+    MsgAuthzRevoke,
+    MsgBeginRedelegate,
+    MsgCancelUnbondingDelegation,
+    MsgCreatePeriodicVestingAccount,
+    MsgCreatePermanentLockedAccount,
+    MsgCreateValidator,
+    MsgCreateVestingAccount,
+    MsgDelegate,
+    MsgDeposit,
+    MsgDepositV1,
+    MsgEditValidator,
+    MsgFundCommunityPool,
+    MsgGrantAllowance,
+    MsgMultiSend,
+    MsgPayForBlobs,
+    MsgRecvPacket,
+    MsgRevokeAllowance,
+    MsgSend,
+    MsgSetWithdrawAddress,
+    MsgSignalVersion,
+    MsgSubmitEvidence,
+    MsgSubmitProposal,
+    MsgSubmitProposalV1,
+    MsgTimeout,
+    MsgTransfer,
+    MsgTryUpgrade,
+    MsgUndelegate,
+    MsgUnjail,
+    MsgVerifyInvariant,
+    MsgVote,
+    MsgVoteV1,
+    MsgVoteWeighted,
+    MsgVoteWeightedV1,
+    MsgWithdrawDelegatorReward,
+    MsgWithdrawValidatorCommission,
+    _parse_gov_content,
+)
 from celestia_app_tpu_torch.tx.sign import Tx
 
 
@@ -142,18 +250,21 @@ class Ctx:
 
     def send_spendable(self, sender: str, recipient: str, amount: int) -> None:
         """Transfer that cannot dip into still-vesting tokens."""
-        from celestia_app_tpu_torch.state.accounts import send_spendable
-
         send_spendable(self.auth, self.bank, sender, recipient, amount, self.time_ns)
+
+    def assert_spendable(self, sender: str, amount: int) -> None:
+        assert_spendable(self.auth, self.bank, sender, amount, self.time_ns)
 
 
 class App:
-    """The celestia state machine's proposal half, on the port's square
-    path on `device` (default CUDA; raises without a card)."""
+    """The celestia state machine, its square path on `device` (default
+    CUDA; raises without a card)."""
 
     def __init__(
         self,
         node_min_gas_price: Dec | None = None,
+        v2_upgrade_height: int | None = None,
+        ibc_token_filter: bool = True,
         square_size_upper_bound: int | None = None,
         device=None,
     ):
@@ -161,11 +272,17 @@ class App:
         self.cms = CommitStore()
         self.chain_id = ""
         self.app_version = LATEST_VERSION
+        # Height-based v1->v2 upgrade (reference --v2-upgrade-height,
+        # cmd/celestia-appd/cmd/root.go:40,142 consumed at app/app.go:458-470).
+        self.v2_upgrade_height = v2_upgrade_height
         self.height = 0
         self.genesis_time_ns = 0
         self.last_block_time_ns = 0
         self.node_min_gas_price = node_min_gas_price or Dec.from_str("0.002")
         self.minter = Minter.default()
+        # False models a non-celestia counterparty chain (the reference's
+        # test/pfm/simapp.go) in IBC tests; celestia itself always filters.
+        self.ibc_token_filter = ibc_token_filter
         # The versioned protocol hard cap (128 for v1/v2); the reference's
         # big-block benchmark manifests override it up to 512
         # (test/e2e/benchmark/throughput.go:15-54), clamped to the codec.
@@ -216,10 +333,6 @@ class App:
             genesis.gov_max_square_size
         )
         if genesis.data_commitment_window:
-            from celestia_app_tpu_torch.modules.blobstream.keeper import (
-                set_data_commitment_window,
-            )
-
             set_data_commitment_window(
                 self.cms.working, genesis.data_commitment_window
             )
@@ -238,8 +351,6 @@ class App:
             ctx.auth.set_account(a)
             if acc.balance:
                 ctx.bank.mint(acc.address, acc.balance)
-        from celestia_app_tpu_torch.modules.distribution import DistributionKeeper
-        from celestia_app_tpu_torch.state.staking import POWER_REDUCTION
 
         dist = DistributionKeeper(ctx.store)
         for v in genesis.validators:
@@ -248,7 +359,6 @@ class App:
             # distribution accrues its reward share to the operator.
             dist.set_notional(v.address, v.power * POWER_REDUCTION)
         # x/crisis: the genesis invariant assertion.
-        from celestia_app_tpu_torch.modules.crisis import assert_invariants
 
         assert_invariants(self.cms.working)
         self.cms.commit(0)
@@ -469,3 +579,753 @@ class App:
             self._own_roots.pop(next(iter(self._own_roots)))
         self._own_roots[key] = root
         return root
+
+    # --- block execution ----------------------------------------------------
+    def finalize_block(
+        self,
+        time_ns: int,
+        txs: list[bytes],
+        last_commit_signers: set[str] | None = None,
+        evidence: tuple = (),
+    ) -> list[TxResult]:
+        """Execute one block.  `last_commit_signers` is the set of operator
+        addresses whose precommits made the previous block's commit (ABCI
+        RequestBeginBlock.LastCommitInfo) — None skips liveness tracking
+        (harnesses without a consensus plane).  `evidence` carries
+        consensus.votes.Equivocation records (ByzantineValidators)."""
+        height = self.height + 1
+        block_store = self.cms.working.branch()
+        ctx = Ctx(block_store, height, time_ns, self.app_version)
+
+        self._begin_block(ctx, time_ns, last_commit_signers, evidence)
+        results = [self._deliver_tx(ctx, raw) for raw in txs]
+        self._end_block(ctx, height)
+
+        delivered = registry().counter(
+            "celestia_txs_delivered_total", "delivered txs by result code"
+        )
+        for r in results:
+            delivered.inc(code=str(r.code))
+
+        self.cms.working.write_back(block_store)
+        self.height = height
+        self.last_block_time_ns = time_ns
+        return results
+
+    def commit(self) -> bytes:
+        app_hash = self.cms.commit(self.height)
+        self._check_state = None  # reset mempool check state each block
+
+        registry().gauge("celestia_block_height", "last committed height").set(
+            self.height
+        )
+        return app_hash
+
+    def _begin_block(
+        self,
+        ctx: Ctx,
+        time_ns: int,
+        last_commit_signers: set[str] | None = None,
+        evidence: tuple = (),
+    ) -> None:
+        """x/mint BeginBlocker (x/mint/abci.go:14-20), then x/distribution's
+        (sdk begin-block order: mint before distribution, so this block's
+        provision and the previous block's tx fees sweep together), then
+        x/evidence + x/slashing liveness."""
+        supply = ctx.bank.supply()
+        self.minter.update(self.genesis_time_ns, time_ns, supply)
+        prev = (
+            self.minter.previous_block_time_ns
+            if self.minter.previous_block_time_ns is not None
+            else self.last_block_time_ns
+        )
+        provision = self.minter.calculate_block_provision(time_ns, prev)
+        if provision > 0:
+            ctx.bank.mint(FEE_COLLECTOR, provision)
+        self.minter.previous_block_time_ns = time_ns
+
+        dist = DistributionKeeper(ctx.store)
+        dist.allocate(ctx.bank, ctx.staking)
+
+        if evidence or last_commit_signers is not None:
+            slashing = SlashingKeeper(ctx.store)
+            # x/evidence BeginBlocker: punish equivocations first (sdk
+            # begin-block order: evidence before slashing liveness).
+            for ev in evidence:
+                try:
+                    slashing.handle_equivocation(
+                        ctx.staking, ctx.bank, dist,
+                        self.chain_id, ev.vote_a, ev.vote_b,
+                        current_height=ctx.height,
+                    )
+                except ValueError:
+                    continue  # invalid evidence is dropped, not fatal
+            if last_commit_signers is not None:
+                for v in ctx.staking.bonded_validators():
+                    slashing.handle_validator_signature(
+                        ctx.staking, ctx.bank, dist,
+                        v.address, v.address in last_commit_signers, time_ns,
+                    )
+
+    def simulate_tx(self, raw: bytes) -> TxResult:
+        """cosmos.tx.v1beta1.Service/Simulate: run the tx (ante + msgs)
+        against a throwaway branch of committed state at the next height
+        — signature verification and the gas limit are waived (sdk
+        Simulate), gas_used is the real metered consumption, and no state
+        survives."""
+        ctx = Ctx(
+            self.cms.working.branch(), self.height + 1,
+            self.last_block_time_ns, self.app_version,
+        )
+        return self._deliver_tx(ctx, raw, simulate=True)
+
+    def _deliver_tx(
+        self, block_ctx: Ctx, raw: bytes, simulate: bool = False
+    ) -> TxResult:
+        """One tx on a branch of `block_ctx`: its ante chain, then its
+        messages.  OutOfGas and every other handler fault become codes 11
+        and 2 (with the ante effects kept); InvariantBroken halts: it
+        propagates out of finalize_block.  OutOfGas and GasKVStore are
+        imported at module level: a function-level import would make the
+        name local to the whole function, and the first `except OutOfGas`
+        would raise UnboundLocalError."""
+        btx = unmarshal_blob_tx(raw)
+        inner = btx.tx if btx is not None else raw
+        tx_ctx = block_ctx.branch()
+        try:
+            tx = Tx.unmarshal(inner)
+            ante_res = run_ante(
+                self, tx_ctx, tx, is_check_tx=False, tx_bytes=inner,
+                simulate=simulate,
+            )
+        except OutOfGas as e:
+            return TxResult(code=11, log=str(e))  # sdk ErrOutOfGas, either phase
+        except (AnteError, ValueError) as e:
+            return TxResult(code=1, log=str(e))
+
+        # The tx's SINGLE gas meter (sdk runTx) carries from the ante chain
+        # into execution: store access during message handling is charged
+        # the KVStore schedule, and blob gas consumes against the same
+        # limit.
+        meter = ante_res.meter
+        events: list = []
+        # Messages run on their own branch (baseapp runMsgs' cache): a failed
+        # execution rolls back msg effects ONLY — the ante effects (fee
+        # deduction, sequence bump) stay committed, so a failed tx still pays
+        # its fee and cannot be replayed (msCache.Write() precedes runMsgs).
+        msg_ctx = tx_ctx.branch()
+        exec_ctx = msg_ctx.with_store(GasKVStore(msg_ctx.store, meter))
+        try:
+            for msg in tx.msgs():
+                # Simulate runs on an infinite meter, so consumption can
+                # legitimately exceed the fee's nominal gas_wanted — the
+                # remaining-gas argument must not go negative there.
+                remaining = (
+                    (1 << 62) if simulate
+                    else ante_res.gas_wanted - meter.consumed
+                )
+                used, evts = self._handle_msg(exec_ctx, msg, remaining)
+                if used:
+                    meter.consume(used, "execution")
+                events.extend(evts)
+        except OutOfGas as e:
+            block_ctx.store.write_back(tx_ctx.store)  # ante effects persist
+            return TxResult(
+                code=11,  # sdk ErrOutOfGas
+                log=str(e), gas_wanted=ante_res.gas_wanted,
+                gas_used=meter.consumed,
+            )
+        except InvariantBroken:
+            # x/crisis: a broken invariant HALTS the chain (the sdk panics
+            # in the crisis msg server) — converting it into a failed tx
+            # would let a corrupted state keep committing.
+            raise
+        except Exception as e:
+            block_ctx.store.write_back(tx_ctx.store)  # ante effects persist
+            return TxResult(
+                code=2, log=str(e), gas_wanted=ante_res.gas_wanted,
+                gas_used=meter.consumed,
+            )
+        tx_ctx.store.write_back(msg_ctx.store)
+        block_ctx.store.write_back(tx_ctx.store)
+        return TxResult(
+            code=0, gas_wanted=ante_res.gas_wanted, gas_used=meter.consumed,
+            events=events,
+        )
+
+    def _handle_msg(self, ctx: Ctx, msg, gas_remaining: int):
+        if isinstance(msg, MsgSend):
+            total = sum(c.amount for c in msg.amount if c.denom == "utia")
+            ctx.send_spendable(msg.from_address, msg.to_address, total)
+            # The sdk bank keeper creates the recipient account on first
+            # receive (x/bank SendCoins -> SetAccount): a freshly funded
+            # address — a multisig, say — must exist before it can sign.
+            ctx.auth.get_or_create(msg.to_address)
+            return 0, [("transfer", msg.from_address, msg.to_address, total)]
+        if isinstance(msg, MsgSubmitEvidence):
+            # Reference behavior: the evidence keeper has NO router
+            # (app/app.go:348-353 never calls SetRouter), so tx-submitted
+            # evidence never succeeds — equivocation evidence arrives via
+            # ABCI ByzantineValidators, not txs.  Error text follows the
+            # sdk's registered ErrNoEvidenceHandlerExists ("unregistered
+            # handler for evidence type").
+            raise ValueError(
+                "unregistered handler for evidence type: "
+                f"{msg.evidence.type_url}"
+            )
+        if isinstance(msg, MsgVerifyInvariant):
+            name = f"{msg.invariant_module_name}/{msg.invariant_route}"
+            check = next((c for n, c in INVARIANTS if n == name), None)
+            if check is None:
+                raise ValueError(f"unknown invariant {name}")
+            # ConstantFee: 1000utia to the fee collector (reference
+            # default_overrides.go:120) — on-chain invariant checks are
+            # priced so they cannot be spammed for free.
+            ctx.send_spendable(msg.sender, FEE_COLLECTOR, 1000)
+            # On an UNMETERED branch: the sdk runs AssertInvariants under
+            # an infinite gas meter (a full-state audit must not die on
+            # the tx's gas limit), and some checks settle intermediate
+            # state that must not leak into consensus state.  A broken
+            # invariant raises InvariantBroken, which deliver()
+            # deliberately does NOT convert to a tx error — the chain
+            # halts (sdk panic).
+            store = (
+                ctx.store.unwrap() if hasattr(ctx.store, "unwrap") else ctx.store
+            )
+            check(store.branch())
+            return 0, [(
+                "cosmos.crisis.v1beta1.EventInvariantChecked", name,
+            )]
+        if isinstance(msg, (
+            MsgCreateVestingAccount,
+            MsgCreatePeriodicVestingAccount,
+            MsgCreatePermanentLockedAccount,
+        )):
+            if ctx.auth.get_account(msg.to_address) is not None:
+                # sdk vesting msg server: the target must be brand new.
+                raise ValueError(f"account {msg.to_address} already exists")
+            acc = ctx.auth.get_or_create(msg.to_address)
+            if isinstance(msg, MsgCreateVestingAccount):
+                total = sum(c.amount for c in msg.amount if c.denom == "utia")
+                acc.vesting_type = (
+                    VESTING_DELAYED if msg.delayed else VESTING_CONTINUOUS
+                )
+                # Continuous vesting starts at the block time (sdk
+                # NewContinuousVestingAccount with ctx.BlockTime); delayed
+                # ignores the start.
+                acc.vesting_start_ns = ctx.time_ns
+                acc.vesting_end_ns = msg.end_time * 10**9
+            elif isinstance(msg, MsgCreatePeriodicVestingAccount):
+                total = msg.total()
+                acc.vesting_type = VESTING_PERIODIC
+                # Periodic vesting starts at the MSG's start_time (sdk
+                # NewPeriodicVestingAccount takes it verbatim).
+                acc.vesting_start_ns = msg.start_time * 10**9
+                acc.vesting_periods = tuple(
+                    (p.length * 10**9,
+                     sum(c.amount for c in p.amount if c.denom == "utia"))
+                    for p in msg.vesting_periods
+                )
+                acc.vesting_end_ns = acc.vesting_start_ns + sum(
+                    length for length, _ in acc.vesting_periods
+                )
+            else:
+                total = sum(c.amount for c in msg.amount if c.denom == "utia")
+                acc.vesting_type = VESTING_PERMANENT
+            acc.original_vesting = total
+            ctx.auth.set_account(acc)
+            ctx.send_spendable(msg.from_address, msg.to_address, total)
+            return 0, [(
+                "cosmos.vesting.v1beta1.EventCreateVestingAccount",
+                msg.to_address, total, acc.vesting_type,
+            )]
+        if isinstance(msg, MsgMultiSend):
+            # Single input (enforced by ValidateBasic, see tx/messages.py),
+            # fanned out to every output; recipients are created on first
+            # receive like the MsgSend path.
+            src = msg.inputs[0].address
+            events = []
+            for out in msg.outputs:
+                total = sum(c.amount for c in out.coins if c.denom == "utia")
+                ctx.send_spendable(src, out.address, total)
+                ctx.auth.get_or_create(out.address)
+                events.append(("transfer", src, out.address, total))
+            return 0, events
+        if isinstance(msg, MsgAuthzExec):
+            return self._handle_authz_exec(ctx, msg, gas_remaining)
+        if isinstance(msg, (MsgAuthzGrant, MsgAuthzRevoke)):
+            authz = AuthzKeeper(ctx.store)
+            try:
+                if isinstance(msg, MsgAuthzGrant):
+                    authz.grant(
+                        msg.granter, msg.grantee,
+                        Grant(msg.msg_type_url, msg.spend_limit, msg.expiration_ns),
+                    )
+                    return 0, [("cosmos.authz.v1beta1.EventGrant",
+                                msg.granter, msg.grantee, msg.msg_type_url)]
+                authz.revoke(msg.granter, msg.grantee, msg.msg_type_url)
+                return 0, [("cosmos.authz.v1beta1.EventRevoke",
+                            msg.granter, msg.grantee, msg.msg_type_url)]
+            except AuthzError as e:
+                raise ValueError(str(e)) from e
+        if isinstance(msg, (MsgGrantAllowance, MsgRevokeAllowance)):
+            feegrant = FeegrantKeeper(ctx.store)
+            try:
+                if isinstance(msg, MsgGrantAllowance):
+                    feegrant.grant(
+                        msg.granter, msg.grantee,
+                        Allowance(
+                            spend_limit=msg.spend_limit,
+                            expiration_ns=msg.expiration_ns,
+                            allowed_msgs=msg.allowed_msgs,
+                        ),
+                    )
+                    return 0, [("cosmos.feegrant.v1beta1.EventSetFeeGrant",
+                                msg.granter, msg.grantee)]
+                feegrant.revoke(msg.granter, msg.grantee)
+                return 0, [("cosmos.feegrant.v1beta1.EventRevokeFeeGrant",
+                            msg.granter, msg.grantee)]
+            except FeegrantError as e:
+                raise ValueError(str(e)) from e
+        if isinstance(msg, MsgPayForBlobs):
+            # keeper.PayForBlobs (x/blob/keeper/keeper.go:43-57): consume
+            # shares x 512 x gasPerBlobByte, emit the event.
+            gas = gas_to_consume(msg.blob_sizes, self.gas_per_blob_byte)
+            if gas > gas_remaining:
+                raise ValueError(
+                    f"out of gas: blob gas {gas} > remaining {gas_remaining}"
+                )
+            return gas, [("celestia.blob.v1.EventPayForBlobs", msg.signer, msg.blob_sizes)]
+        if isinstance(msg, MsgSignalVersion):
+            keeper = SignalKeeper(ctx.store, ctx.staking)
+            keeper.signal_version(msg.validator_address, msg.version, self.app_version)
+            return 0, []
+        if isinstance(msg, MsgTryUpgrade):
+            keeper = SignalKeeper(ctx.store, ctx.staking)
+            keeper.try_upgrade(ctx.height, self.app_version)
+            return 0, []
+        if isinstance(msg, (MsgTransfer, MsgRecvPacket, MsgAcknowledgement, MsgTimeout)):
+            return self._handle_ibc_msg(ctx, msg)
+        if isinstance(msg, (MsgCreateValidator, MsgEditValidator)):
+            dist = DistributionKeeper(ctx.store)
+            try:
+                if isinstance(msg, MsgCreateValidator):
+                    self._track_vesting_delegation(
+                        ctx, msg.delegator_address, msg.value.amount
+                    )
+                    ctx.staking.create_validator(
+                        ctx.bank, dist, msg.validator_address, msg.pubkey,
+                        msg.delegator_address, msg.value.amount,
+                        Dec.from_str(msg.commission_rate or "0").raw,
+                        msg.min_self_delegation,
+                    )
+                    # The bounds the operator declared bind every later edit.
+                    dist.set_commission_bounds(
+                        msg.validator_address,
+                        Dec.from_str(msg.commission_max_rate or "1"),
+                        Dec.from_str(msg.commission_max_change_rate or "1"),
+                    )
+                    return 0, [("cosmos.staking.v1beta1.EventCreateValidator",
+                                msg.validator_address, msg.value.amount)]
+                if not ctx.staking.has_validator(msg.validator_address):
+                    raise ValueError(f"no validator {msg.validator_address}")
+                if msg.commission_rate:
+                    dist.change_commission_rate(
+                        msg.validator_address, Dec.from_str(msg.commission_rate)
+                    )
+                return 0, [("cosmos.staking.v1beta1.EventEditValidator",
+                            msg.validator_address)]
+            except (StakingError, DistributionError) as e:
+                raise ValueError(str(e)) from e
+        if isinstance(msg, (MsgDelegate, MsgUndelegate, MsgBeginRedelegate)):
+            if msg.amount.denom != "utia":  # x/staking ErrBadDenom
+                raise ValueError(
+                    f"invalid bond denom {msg.amount.denom!r}, expected utia"
+                )
+            amount = msg.amount.amount
+            # Settle pending rewards before the stake changes (the sdk's
+            # BeforeDelegationSharesModified hook; x/distribution hooks.go).
+
+            dist = DistributionKeeper(ctx.store)
+            dist.settle(ctx.staking, msg.delegator_address, msg.validator_address)
+            if isinstance(msg, MsgBeginRedelegate):
+                dist.settle(
+                    ctx.staking, msg.delegator_address, msg.validator_dst_address
+                )
+            if isinstance(msg, MsgDelegate):
+                self._track_vesting_delegation(ctx, msg.delegator_address, amount)
+                ctx.staking.delegate(
+                    ctx.bank, msg.delegator_address, msg.validator_address, amount
+                )
+                return 0, [("cosmos.staking.v1beta1.EventDelegate",
+                            msg.validator_address, amount)]
+            if isinstance(msg, MsgUndelegate):
+                # No vesting bookkeeping here: the tokens return at
+                # unbonding COMPLETION (end blocker), and that's when the
+                # lock re-encumbers them (sdk TrackUndelegation runs at
+                # CompleteUnbonding) — untracking now would freeze the
+                # account's liquid funds for the whole unbonding window.
+                completion = ctx.staking.undelegate(
+                    ctx.bank, msg.delegator_address, msg.validator_address,
+                    amount, ctx.time_ns, height=ctx.height,
+                )
+                # An operator undelegating below its declared
+                # min_self_delegation is jailed (sdk Undelegate's
+                # jailValidator path): no skin in the game, no vote.
+                min_self = ctx.staking.min_self_delegation(msg.validator_address)
+                if (
+                    msg.delegator_address == msg.validator_address
+                    and min_self
+                    and ctx.staking.delegation(
+                        msg.delegator_address, msg.validator_address
+                    ) < min_self
+                    and not ctx.staking.is_jailed(msg.validator_address)
+                ):
+                    ctx.staking.jail(msg.validator_address)
+                return 0, [("cosmos.staking.v1beta1.EventUnbond",
+                            msg.validator_address, amount, completion)]
+            ctx.staking.begin_redelegate(
+                msg.delegator_address, msg.validator_address,
+                msg.validator_dst_address, amount,
+            )
+            # Same skin-in-the-game rule as the undelegate path: an operator
+            # redelegating its self-bond below min_self_delegation is jailed
+            # (sdk BeginRedelegate jails the source validator too).
+            min_self = ctx.staking.min_self_delegation(msg.validator_address)
+            if (
+                msg.delegator_address == msg.validator_address
+                and min_self
+                and ctx.staking.delegation(
+                    msg.delegator_address, msg.validator_address
+                ) < min_self
+                and not ctx.staking.is_jailed(msg.validator_address)
+            ):
+                ctx.staking.jail(msg.validator_address)
+            return 0, [("cosmos.staking.v1beta1.EventRedelegate",
+                        msg.validator_address, msg.validator_dst_address, amount)]
+        if isinstance(msg, MsgCancelUnbondingDelegation):
+            # Settle pending rewards before shares change (the same
+            # BeforeDelegationSharesModified hook the delegate path runs).
+            DistributionKeeper(ctx.store).settle(
+                ctx.staking, msg.delegator_address, msg.validator_address
+            )
+            try:
+                ctx.staking.cancel_unbonding(
+                    ctx.bank, msg.delegator_address, msg.validator_address,
+                    msg.amount.amount, msg.creation_height, ctx.time_ns,
+                )
+            except StakingError as e:
+                raise ValueError(str(e)) from e
+            return 0, [(
+                "cosmos.staking.v1beta1.EventCancelUnbondingDelegation",
+                msg.validator_address, msg.amount.amount, msg.creation_height,
+            )]
+        if isinstance(msg, MsgUnjail):
+            try:
+                SlashingKeeper(ctx.store).unjail(
+                    ctx.staking, msg.validator_address, ctx.time_ns
+                )
+            except SlashingError as e:
+                raise ValueError(str(e)) from e
+            return 0, [("cosmos.slashing.v1beta1.EventUnjail", msg.validator_address)]
+        if isinstance(
+            msg,
+            (
+                MsgWithdrawDelegatorReward,
+                MsgWithdrawValidatorCommission,
+                MsgSetWithdrawAddress,
+                MsgFundCommunityPool,
+            ),
+        ):
+            dist = DistributionKeeper(ctx.store)
+            try:
+                if isinstance(msg, MsgWithdrawDelegatorReward):
+                    paid = dist.withdraw_rewards(
+                        ctx.bank, ctx.staking,
+                        msg.delegator_address, msg.validator_address,
+                    )
+                    return 0, [(
+                        "cosmos.distribution.v1beta1.EventWithdrawRewards",
+                        msg.validator_address, paid,
+                    )]
+                if isinstance(msg, MsgWithdrawValidatorCommission):
+                    paid = dist.withdraw_commission(ctx.bank, msg.validator_address)
+                    return 0, [(
+                        "cosmos.distribution.v1beta1.EventWithdrawCommission", paid,
+                    )]
+                if isinstance(msg, MsgSetWithdrawAddress):
+                    dist.set_withdraw_address(
+                        msg.delegator_address, msg.withdraw_address
+                    )
+                    return 0, []
+                total = sum(c.amount for c in msg.amount if c.denom == "utia")
+                ctx.assert_spendable(msg.depositor, total)
+                dist.fund_community_pool(ctx.bank, msg.depositor, total)
+                return 0, [(
+                    "cosmos.distribution.v1beta1.EventFundCommunityPool", total,
+                )]
+            except DistributionError as e:
+                raise ValueError(str(e)) from e
+        if isinstance(msg, (
+            MsgSubmitProposal, MsgSubmitProposalV1,
+            MsgVote, MsgVoteV1, MsgVoteWeighted, MsgVoteWeightedV1,
+            MsgDeposit, MsgDepositV1,
+        )):
+            gov = GovKeeper(ctx.store, ctx.staking, ctx.bank)
+            if isinstance(msg, MsgSubmitProposalV1):
+                # gov v1: the single MsgExecLegacyContent's Content maps
+                # onto the same proposal shape the v1beta1 surface takes
+                # (the gov router executes legacy Content only).
+
+                exec_msg = msg.legacy_content()
+                (
+                    _title, _desc, v1_changes, spend_recipient, spend_amount,
+                ) = _parse_gov_content(exec_msg.content)
+                msg = MsgSubmitProposal(
+                    _title, _desc, v1_changes, msg.initial_deposit,
+                    msg.proposer, spend_recipient, spend_amount,
+                )
+            if isinstance(msg, MsgSubmitProposal):
+                deposit = sum(c.amount for c in msg.initial_deposit if c.denom == "utia")
+                ctx.assert_spendable(msg.proposer, deposit)
+                spend = None
+                if msg.spend_recipient:
+                    spend = (
+                        msg.spend_recipient,
+                        sum(c.amount for c in msg.spend_amount if c.denom == "utia"),
+                    )
+                pid = gov.submit(
+                    msg.proposer,
+                    [ParamChange(c.subspace, c.key, c.value) for c in msg.changes],
+                    deposit,
+                    ctx.time_ns,
+                    spend=spend,
+                )
+                return 0, [("cosmos.gov.v1beta1.EventSubmitProposal", pid)]
+            if isinstance(msg, (MsgVote, MsgVoteV1)):
+                gov.vote(msg.proposal_id, msg.voter, msg.option, ctx.time_ns)
+                return 0, [("cosmos.gov.v1beta1.EventVote", msg.proposal_id, msg.voter)]
+            if isinstance(msg, (MsgVoteWeighted, MsgVoteWeightedV1)):
+                gov.vote_weighted(
+                    msg.proposal_id, msg.voter,
+                    [(VoteOption(o), Dec.from_str(w)) for o, w in msg.options],
+                    ctx.time_ns,
+                )
+                return 0, [("cosmos.gov.v1beta1.EventVote", msg.proposal_id, msg.voter)]
+            deposit = sum(c.amount for c in msg.amount if c.denom == "utia")
+            ctx.assert_spendable(msg.depositor, deposit)
+            gov.deposit(msg.proposal_id, msg.depositor, deposit, ctx.time_ns)
+            return 0, [("cosmos.gov.v1beta1.EventDeposit", msg.proposal_id, deposit)]
+        raise ValueError(f"no handler for {type(msg).__name__}")
+
+    @staticmethod
+    def _track_vesting_delegation(ctx: Ctx, delegator: str, amount: int) -> None:
+        """Vesting bookkeeping BEFORE a staking escrow moves: delegations
+        (incl. a create-validator self-bond) consume locked tokens first
+        (sdk TrackDelegation), so a vesting account's later-received
+        liquid funds stay spendable."""
+        acc = ctx.auth.get_account(delegator)
+        if acc is not None and acc.vesting_type:
+            acc.track_delegation(amount, ctx.time_ns)
+            ctx.auth.set_account(acc)
+
+    def _handle_authz_exec(self, ctx: Ctx, msg, gas_remaining: int):
+        """MsgExec (sdk authz DispatchActions): each inner msg's signer is
+        the GRANTER; the grant (granter -> grantee=tx signer, msg type) is
+        checked-and-consumed, then the msg runs through the normal
+        handlers.  PFBs cannot ride in an exec (blobs only travel in
+        BlobTxs), matching the reference's gatekeeping."""
+
+        authz = AuthzKeeper(ctx.store)
+        gas_total, events = 0, []
+        for inner in msg.inner_msgs():
+            if isinstance(inner, (MsgPayForBlobs, MsgAuthzExec)):
+                raise ValueError(
+                    f"{type(inner).__name__} cannot be nested in MsgExec"
+                )
+            granter = getattr(inner, "signer", None) or getattr(
+                inner, "from_address", None
+            )
+            if not granter:
+                raise ValueError(
+                    f"cannot determine granter for {type(inner).__name__}"
+                )
+            try:
+                authz.accept(granter, msg.grantee, inner, ctx.time_ns)
+            except AuthzError as e:
+                raise ValueError(str(e)) from e
+            used, evts = self._handle_msg(ctx, inner, gas_remaining - gas_total)
+            gas_total += used
+            events.extend(evts)
+        return gas_total, events
+
+    def _handle_ibc_msg(self, ctx: Ctx, msg):
+        """Transfer sends + the three relay callbacks through the versioned
+        middleware stack (tokenfilter > PFM [v2] > transfer,
+        app/app.go:329-346)."""
+
+
+        channels = ChannelKeeper(ctx.store)
+        if isinstance(msg, MsgTransfer):
+            if msg.token.denom == "utia":
+                # Escrow is an outflow: vesting tokens cannot leave via IBC.
+                ctx.assert_spendable(msg.sender, msg.token.amount)
+            keeper = TransferKeeper(channels, ctx.bank)
+            packet = keeper.send_transfer(
+                source_channel=msg.source_channel,
+                sender=msg.sender,
+                receiver=msg.receiver,
+                denom=msg.token.denom,
+                amount=msg.token.amount,
+                timeout_height=Height(
+                    msg.timeout_revision_number, msg.timeout_revision_height
+                ),
+                timeout_timestamp_ns=msg.timeout_timestamp_ns,
+                memo=msg.memo,
+                source_port=msg.source_port,
+            )
+            return 0, [("ibc.send_packet", packet.marshal().hex())]
+        if isinstance(msg, MsgRecvPacket):
+            packet = msg.packet()
+            # Redundant relays are no-op successes in DeliverTx (ibc-go
+            # ErrNoOpMsg), so a racing relayer's batched siblings survive.
+            if channels.has_receipt(packet):
+                return 0, [("ibc.noop", "recv", packet.sequence)]
+            dest_chan = channels.channel(
+                packet.destination_port, packet.destination_channel
+            )
+            if dest_chan.connection_id:
+                # Connection-backed channel: the packet commitment must be
+                # PROVEN in the sender's state through the light client.
+
+                verify_recv_proof(
+                    ctx.store, dest_chan, packet,
+                    msg.state_proof(), msg.proof_height,
+                )
+            channels.recv_packet(packet, ctx.height, ctx.time_ns)
+            # The app callback runs on a cache; its state lands only when
+            # the ack is a success (ibc-go msg_server.go RecvPacket's
+            # cacheCtx) — an error ack must not leave minted vouchers or
+            # half-done forwards behind.  The destination port routes to
+            # the app module (ibc-go's port router): transfer or icahost.
+            recv_ctx = ctx.branch()
+
+            if packet.destination_port == ICA_HOST_PORT:
+                if self.app_version < 2:
+                    raise ValueError(
+                        "icahost is a v2 module (app/modules.go:185-187)"
+                    )
+
+                ica = ICAHostModule(
+                    ICAHostKeeper(recv_ctx.store), self._handle_msg
+                )
+                ack, recv_events = ica.on_recv_packet(recv_ctx, packet)
+            else:
+                recv_keeper = TransferKeeper(
+                    ChannelKeeper(recv_ctx.store), recv_ctx.bank
+                )
+                stack = build_transfer_stack(
+                    self.app_version, recv_keeper,
+                    token_filter=self.ibc_token_filter,
+                )
+                ack = stack.on_recv_packet(recv_ctx, packet)
+                # Middleware (PFM) may have sent onward packets during recv.
+                recv_events = [
+                    ("ibc.send_packet", p.marshal().hex()) for p in recv_keeper.sent
+                ]
+            events = [("ibc.write_acknowledgement", packet.marshal().hex(), ack.hex())]
+            if not ack_is_error(ack):
+                ctx.store.write_back(recv_ctx.store)
+                events += recv_events
+            channels.write_acknowledgement(packet, ack)
+            return 0, events
+
+        def _ica_port(port: str) -> bool:
+            # Port routing (ibc-go's router): the ONLY non-transfer app
+            # here is ICA; every other port belongs to the transfer app
+            # (send_transfer escrows for arbitrary ports, so the refund
+            # callbacks must fire for them too).
+            return port == ICA_HOST_PORT or port.startswith(CONTROLLER_PORT_PREFIX)
+
+        keeper = TransferKeeper(channels, ctx.bank)
+        stack = build_transfer_stack(
+            self.app_version, keeper, token_filter=self.ibc_token_filter
+        )
+        if isinstance(msg, MsgAcknowledgement):
+            packet = msg.packet()
+            if channels.packet_commitment(
+                packet.source_port, packet.source_channel, packet.sequence
+            ) is None:
+                return 0, [("ibc.noop", "ack", packet.sequence)]
+            src_chan = channels.channel(packet.source_port, packet.source_channel)
+            if src_chan.connection_id:
+                verify_ack_proof(
+                    ctx.store, src_chan, packet, msg.acknowledgement,
+                    msg.state_proof(), msg.proof_height,
+                )
+            channels.acknowledge_packet(packet)
+            # Only ICA acks bypass the transfer app's refund-on-error
+            # callback; an ICA controller's ack just clears the commitment.
+            if not _ica_port(packet.source_port):
+                stack.on_acknowledgement_packet(ctx, packet, msg.acknowledgement)
+            return 0, [("ibc.acknowledge_packet", packet.sequence)]
+        packet = msg.packet()  # MsgTimeout
+        if channels.packet_commitment(
+            packet.source_port, packet.source_channel, packet.sequence
+        ) is None:
+            return 0, [("ibc.noop", "timeout", packet.sequence)]
+        src_chan = channels.channel(packet.source_port, packet.source_channel)
+        if src_chan.connection_id:
+            # Proven non-receipt on the counterparty at the proof height;
+            # the timestamp bound comes from the counterparty's ATTESTED
+            # consensus time at that height, never the local clock (a
+            # lagging local clock would otherwise let the sender refund
+            # escrow while the receiver could still accept the packet).
+
+            verify_timeout_proof(
+                ctx.store, src_chan, packet, msg.state_proof(), msg.proof_height
+            )
+            proof_time_ns = counterparty_proof_time(
+                ctx.store, src_chan, msg.proof_height
+            )
+        else:
+            # Harness-direct channels (no connection/client): trusted mode.
+            proof_time_ns = ctx.time_ns
+        channels.timeout_packet(packet, msg.proof_height, proof_time_ns)
+        if not _ica_port(packet.source_port):
+            stack.on_timeout_packet(ctx, packet)
+        return 0, [("ibc.timeout_packet", packet.sequence)]
+
+    def _end_block(self, ctx: Ctx, height: int) -> None:
+        """Gov clocks + blobstream (v1 only) + height/signal upgrades
+        (app/app.go:458-477)."""
+
+        GovKeeper(ctx.store, ctx.staking, ctx.bank).end_blocker(ctx.time_ns)
+        # Matured unbonding delegations release back to delegators
+        # (x/staking EndBlocker's unbonding queue); returning tokens
+        # re-encumber a vesting account's lock (sdk TrackUndelegation at
+        # CompleteUnbonding).
+        for delegator, amount in ctx.staking.complete_unbondings(
+            ctx.bank, ctx.time_ns
+        ):
+            acc = ctx.auth.get_account(delegator)
+            if acc is not None and acc.vesting_type:
+                acc.track_undelegation(amount)
+                ctx.auth.set_account(acc)
+        if self.app_version == 1:
+            BlobstreamKeeper(ctx.store, ctx.staking).end_blocker(height, ctx.time_ns)
+        if (
+            self.app_version == 1
+            and self.v2_upgrade_height is not None
+            and height >= self.v2_upgrade_height
+        ):
+            ModuleManager().run_migrations(ctx, 1, 2)
+            self.app_version = 2
+            return
+        if self.app_version >= 2:
+            keeper = SignalKeeper(ctx.store, ctx.staking)
+            up = keeper.should_upgrade(height)
+            if up is not None:
+                ModuleManager().run_migrations(ctx, self.app_version, up.app_version)
+                self.app_version = up.app_version
+                keeper.reset_tally()

@@ -8,7 +8,8 @@ columns, bit t of byte b of a symbol LSB-first).  `codec_tensors` turns that
 
 The App's state is plain bytes: `app_from_export` starts a port App from the
 (key, value) pairs a committed store exports (the JAX package's
-`CommitStore.export()`), so both packages can go on from one state.
+`CommitStore.export()`), plus the x/mint state and the options the App holds
+outside its store, so both packages can go on from one state.
 """
 
 from __future__ import annotations
@@ -73,15 +74,29 @@ def bits_tensor(bits: np.ndarray, device: str | torch.device) -> torch.Tensor:
 
 
 def app_from_export(items, *, chain_id: str, app_version: int, height: int,
-                    genesis_time_ns: int, last_block_time_ns: int, device=None):
+                    genesis_time_ns: int, last_block_time_ns: int, minter=None,
+                    v2_upgrade_height: int | None = None, ibc_token_filter: bool = True,
+                    device=None):
     """A port App (app/app.App on `device`, default CUDA) whose working store
     holds the (key, value) byte pairs `items` (a dict or an iterable of
     pairs), committed at `height`, with the chain's coordinates set as the
-    exporting app had them; its next proposal is for height + 1."""
+    exporting app had them; its next block is height + 1.
+
+    The x/mint state lives on the App, not in the store, so it comes apart:
+    `minter` is a dict of the exporting App's `minter.inflation_rate` and
+    `minter.annual_provisions` (each as its Dec's `raw` integer, 1e18-scaled)
+    and `minter.previous_block_time_ns` (None before the first block).
+    Without it the App starts from Minter.default(), as a fresh chain does,
+    and its first block mints another provision than the exporter's would.
+    `v2_upgrade_height` and `ibc_token_filter` are the App options of the
+    same names."""
     from celestia_app_tpu_torch.app import App
+    from celestia_app_tpu_torch.modules.mint.minter import Minter
+    from celestia_app_tpu_torch.state.dec import Dec
     from celestia_app_tpu_torch.state.store import KVStore
 
-    app = App(device=device)
+    app = App(v2_upgrade_height=v2_upgrade_height, ibc_token_filter=ibc_token_filter,
+              device=device)
     pairs = items.items() if isinstance(items, dict) else items
     app.cms.working = KVStore({bytes(k): bytes(v) for k, v in pairs})
     app.cms.commit(height)
@@ -90,4 +105,10 @@ def app_from_export(items, *, chain_id: str, app_version: int, height: int,
     app.height = height
     app.genesis_time_ns = genesis_time_ns
     app.last_block_time_ns = last_block_time_ns
+    if minter is not None:
+        app.minter = Minter(
+            Dec(int(minter["inflation_rate"])),
+            Dec(int(minter["annual_provisions"])),
+            previous_block_time_ns=minter["previous_block_time_ns"],
+        )
     return app

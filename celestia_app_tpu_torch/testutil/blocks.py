@@ -6,7 +6,9 @@ turns, each account's sequence counts up from 0 (sends first, then blob
 txs, the order FilterTxs executes them in), and every fee covers the gas at
 the node's default minimum price.  Blob payloads and sizes come from
 `np.random.default_rng(seed)`; the signatures are RFC 6979, so the same
-arguments give the same bytes on every machine.
+arguments give the same bytes on every machine.  A chain's later heights
+pass `sequences=next_sequences(app, keys)`, each account's next sequence in
+the App's committed state.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from celestia_app_tpu_torch.constants import (
 from celestia_app_tpu_torch.crypto import PrivateKey
 from celestia_app_tpu_torch.modules.blob.types import estimate_gas, new_msg_pay_for_blobs
 from celestia_app_tpu_torch.shares import Blob, Namespace
+from celestia_app_tpu_torch.state.accounts import AuthKeeper
 from celestia_app_tpu_torch.tx.envelopes import BlobTx
 from celestia_app_tpu_torch.tx.messages import Coin, MsgSend
 from celestia_app_tpu_torch.tx.sign import Fee, build_and_sign
@@ -74,3 +77,12 @@ def block_txs(keys: list[PrivateKey], chain_id: str, *, seed: int, sends: int,
                              Fee((Coin("utia", gas),), gas))
         txs.append(BlobTx(raw, (blob,)).marshal())
     return txs
+
+
+def next_sequences(app, keys: list[PrivateKey]) -> list[int]:
+    """Each key's next sequence in `app`'s committed state (0 for an address
+    the chain holds no account for): block_txs' `sequences` for the chain's
+    next height."""
+    auth = AuthKeeper(app.cms.working)
+    accounts = [auth.get_account(k.public_key().address()) for k in keys]
+    return [a.sequence if a is not None else 0 for a in accounts]

@@ -3,8 +3,9 @@
 The port's copy of `funded_keys`, `deterministic_genesis` and their
 constants from celestia_app_tpu/testutil/testnode.py: the same seeds give
 the same accounts, validators and genesis in both packages, so a chain the
-JAX TestNode builds can be rebuilt on the port.  TestNode itself waits for
-FinalizeBlock (ROADMAP, queue 1).
+JAX TestNode builds can be rebuilt on the port.  TestNode itself, the
+in-process node around the App's block cycle, is not ported yet (ROADMAP,
+queue 1).
 """
 
 from __future__ import annotations

@@ -56,11 +56,12 @@ Phases, in order; any failure raises and the script exits non-zero:
              built on the default stream while the pipeline runs, equal to
              the one-shot forests; a speculation hit and a discard; the
              ring's swap of a pinned slot;
- 10. commitments, 11. app, 12. querier, 13. bridge: the consensus-side
-             entry points, the ABCI App's CheckTx / PrepareProposal /
-             ProcessProposal among them (each phase's docstring says what it
-             checks);
- 14. giant   k=1024 and k=2048 (GF(2^16)): the materializing fused, epi and
+ 10. commitments, 11. app, 12. chain, 13. querier, 14. bridge: the
+             consensus-side entry points, the ABCI App's CheckTx /
+             PrepareProposal / ProcessProposal among them, and three k=128
+             heights of Prepare -> Process -> FinalizeBlock -> Commit (each
+             phase's docstring says what it checks);
+ 15. giant   k=1024 and k=2048 (GF(2^16)): the materializing fused, epi and
              XOR lowerings and the panel-streamed one ($CELESTIA_PIPE_PANEL:
              64-row panels, 48-row panels at k=1024, the FFT column leg):
              one data root and one EDS per k, the roots-only twins, 64
@@ -68,7 +69,7 @@ Phases, in order; any failure raises and the script exits non-zero:
              lowering as counted from the code, wall and device time and
              peak memory per lowering, a k=1024 BlockPipeline under panel
              mode (batch 1, 16 panels per square);
- 15. mesh    the multi-device plane on 4 logical shards of cuda:0, each with
+ 16. mesh    the multi-device plane on 4 logical shards of cuda:0, each with
              its own stream (and again over the real cards where there are
              two or more): the k=512 sharded extend over 2 and 4 shards and
              its DAH-only twin == single-card compute, sharded repair with
@@ -1776,6 +1777,202 @@ def phase_app(torch, card: str) -> dict:
     return {"prepare": prepares[1][2], "process": processes[1][2]}
 
 
+# phase_chain: the app hash after the golden chain's first block (APP_GOLDEN's
+# txs through Prepare and Process, finalized at GENESIS_TIME_NS +
+# BLOCK_INTERVAL_NS with every genesis validator in the last commit), which
+# tests/test_torch_finalize.py pins from the JAX App; and the k=128 chain's
+# height count (APP_BLOCK's chain; heights 2 and 3 are new blocks of the same
+# spec, signed at the sequences the chain's state holds).
+CHAIN_GOLDEN_APP_HASH = "cd64aec07f3f4f72bc51d3677d4a95f45494792d9c76e6ce690bd9e04f98092d"
+CHAIN_HEIGHTS = 3
+
+
+def chain_split():
+    """FinalizeBlock's host time by part: the ante chain (and the signature
+    verifies inside it), the message handlers, the begin and end blockers."""
+    from celestia_app_tpu_torch.app import App
+    from celestia_app_tpu_torch.app import app as app_mod
+    from celestia_app_tpu_torch.crypto.keys import PublicKey
+
+    return Split([
+        (app_mod, "run_ante", "ante"),
+        (PublicKey, "verify", "of which signature verify"),
+        (App, "_handle_msg", "message execution"),
+        (App, "_begin_block", "begin + end block"),
+        (App, "_end_block", "begin + end block"),
+    ])
+
+
+CHAIN_PARTS = ("ante", "of which signature verify", "message execution", "begin + end block")
+
+
+def describe_parts(parts: dict) -> str:
+    return ", ".join(f"{k} {parts.get(k, 0.0):.3f}" for k in CHAIN_PARTS)
+
+
+def tx_results(results) -> list[tuple]:
+    return [(r.code, r.log, r.gas_wanted, r.gas_used, r.events) for r in results]
+
+
+def phase_chain(torch, card: str) -> dict:
+    """Block execution on the card: a chain of Prepare -> Process ->
+    FinalizeBlock -> Commit, height after height.  The golden chain's first
+    block gives the app hash pinned from the JAX App.  Then CHAIN_HEIGHTS
+    k=128 heights (APP_BLOCK's chain, 256 keys, 200 sends + 320 PFBs each):
+    a proposer App on the card prepares, a second card App accepts (the
+    commitment memo cleared before each, as on two nodes), and both run
+    finalize_block with every validator in the last commit, then commit.
+    Both card Apps give the same TxResults (code, log, gas, events; every
+    tx code 0) and app hash, and so does an App(device="cpu") that
+    finalizes the same txs; no kernel launches across Finalize + Commit;
+    after the commit check_tx refuses a tx at a committed sequence, and
+    simulate_tx of a new PFB gives the CPU App's gas.  Logs Finalize (median
+    of the heights, split into ante, signature verify, message execution,
+    begin + end block), Commit, the height's wall and its device idle share
+    (torch.profiler, device activity only).  Returns one height's launches
+    per Prepare, Process, Finalize and Commit."""
+    from celestia_app_tpu_torch.inclusion import batched
+    from celestia_app_tpu_torch.kernels import _build
+    from celestia_app_tpu_torch.testutil import BLOCK_INTERVAL_NS, GENESIS_TIME_NS, funded_keys
+    from celestia_app_tpu_torch.testutil.blocks import block_txs, next_sequences
+    from celestia_app_tpu_torch.tx.envelopes import unmarshal_blob_tx
+
+    # 1. The golden chain's first block.
+    genesis, txs = app_chain(APP_GOLDEN, 64)
+    signers = {v.address for v in genesis.validators}
+    app = fresh_app(genesis)
+    data = app.prepare_proposal(txs)
+    if data.txs != tuple(txs) or fresh_app(genesis).process_proposal(data) is not True:
+        raise AssertionError(f"golden chain: Prepare kept {len(data.txs)} of {len(txs)} txs "
+                             f"or the second App rejected it")
+    results = app.finalize_block(GENESIS_TIME_NS + BLOCK_INTERVAL_NS, list(data.txs),
+                                 last_commit_signers=signers)
+    golden = app.commit().hex()
+    if golden != CHAIN_GOLDEN_APP_HASH or any(r.code for r in results):
+        raise AssertionError(f"golden chain: app hash {golden}, codes "
+                             f"{[r.code for r in results]}; want {CHAIN_GOLDEN_APP_HASH}")
+    log(f"[{card}] chain golden block: {len(txs)} txs all code 0, app hash {golden} == the "
+        f"pinned JAX App hash")
+
+    # 2. The k=128 chain.
+    t0 = time.perf_counter()
+    keys = funded_keys(APP_BLOCK["n_keys"])
+    genesis, first = app_chain(APP_BLOCK, APP_K)
+    signers = {v.address for v in genesis.validators}
+    proposer, validator = fresh_app(genesis), fresh_app(genesis)
+    on_cpu = fresh_app(genesis, device="cpu")
+    log(f"[{card}] chain k={APP_K}: genesis of {len(keys)} keys, three Apps "
+        f"({time.perf_counter() - t0:.3f} s)")
+    rows = []
+    for h in range(1, CHAIN_HEIGHTS + 1):
+        t0 = time.perf_counter()
+        txs = first if h == 1 else block_txs(
+            keys, genesis.chain_id, seed=APP_BLOCK["seed"] + h, sends=APP_BLOCK["sends"],
+            pfbs=APP_BLOCK["pfbs"], blob_shares=APP_BLOCK["blob_shares"],
+            sequences=next_sequences(proposer, keys))
+        made_s = time.perf_counter() - t0
+        time_ns = proposer.last_block_time_ns + BLOCK_INTERVAL_NS
+        row: dict = {"height": h, "made_s": made_s}
+
+        def timed(label: str, fn):
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t1 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            row[label] = ((time.perf_counter() - t1) * 1e3, dict(_build.LAUNCHES))
+            return out
+
+        def height():
+            batched._COMMIT_MEMO.clear()
+            data = timed("prepare", lambda: proposer.prepare_proposal(txs))
+            batched._COMMIT_MEMO.clear()
+            row["accepted"] = timed("process", lambda: validator.process_proposal(data))
+            row["data"] = data
+            for name, app in (("proposer", proposer), ("validator", validator)):
+                split = chain_split()
+                with split.timing():
+                    row[f"results {name}"] = timed(f"finalize {name}", lambda a=app: a.finalize_block(
+                        time_ns, list(data.txs), last_commit_signers=signers))
+                row[f"split {name}"] = split.ms
+                row[f"hash {name}"] = timed(f"commit {name}", app.commit)
+
+        wall_us, spans = profiled_spans(torch, height, host=False)
+        busy_us = sum(b - a for a, b in merged(spans))
+        row["wall_ms"], row["busy_ms"] = wall_us / 1e3, busy_us / 1e3
+        row["idle"] = 100 - 100 * busy_us / wall_us if spans else None
+        data = row["data"]
+        if row["accepted"] is not True or data.square_size != APP_K or len(data.txs) != len(txs):
+            raise AssertionError(f"height {h}: Prepare kept {len(data.txs)} of {len(txs)} txs "
+                                 f"in k={data.square_size}; the second App's verdict "
+                                 f"{row['accepted']}")
+        t0 = time.perf_counter()
+        cpu_results = on_cpu.finalize_block(time_ns, list(data.txs), last_commit_signers=signers)
+        cpu_hash = on_cpu.commit()
+        row["cpu_ms"] = (time.perf_counter() - t0) * 1e3
+        want = tx_results(cpu_results)
+        for name in ("proposer", "validator"):
+            got = tx_results(row[f"results {name}"])
+            if got != want or row[f"hash {name}"] != cpu_hash:
+                bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+                raise AssertionError(f"height {h}: the {name}'s TxResults differ from "
+                                     f"App(device='cpu')'s at {bad[:8]} or its app hash "
+                                     f"{row[f'hash {name}'].hex()} != {cpu_hash.hex()}")
+            for step in ("finalize", "commit"):
+                check_launches(f"height {h} {step} ({name})", row[f"{step} {name}"][1],
+                               {kernel: 0 for kernel in KERNELS})
+        codes = [r[0] for r in want]
+        if any(codes):
+            raise AssertionError(f"height {h}: codes {[(i, c) for i, c in enumerate(codes) if c][:8]}")
+        for step in ("prepare", "process"):
+            check_launches(f"height {h} {step}", row[step][1],
+                           {"sha256_leaf": None, "sha256": None, "rs_dense": 2})
+        refused = proposer.check_tx(data.txs[0])
+        if refused.code == 0:
+            raise AssertionError(f"height {h}: check_tx admitted a tx at a committed sequence")
+        probe = block_txs(keys, genesis.chain_id, seed=10_000 + h, sends=0, pfbs=1,
+                          blob_shares=APP_BLOCK["blob_shares"],
+                          sequences=next_sequences(proposer, keys))[0]
+        simulated = [a.simulate_tx(probe) for a in (proposer, on_cpu)]
+        if (tx_results(simulated[:1]) != tx_results(simulated[1:]) or simulated[0].code
+                or simulated[0].gas_used <= 0 or unmarshal_blob_tx(probe) is None):
+            raise AssertionError(f"height {h}: simulate_tx of a PFB on the card "
+                                 f"{tx_results(simulated[:1])}, on the CPU {tx_results(simulated[1:])}")
+        row["simulated_gas"] = simulated[0].gas_used
+        rows.append(row)
+        split = row["split proposer"]
+        idle = "not measured" if row["idle"] is None else f"{row['idle']:.2f} %"
+        log(f"[{card}] chain height {h}: {len(data.txs)} txs all code 0 ({made_s:.3f} s to sign); "
+            f"app hash {cpu_hash.hex()} on both card Apps == App(device='cpu') (finalize + "
+            f"commit {row['cpu_ms']:.3f} ms); Prepare {row['prepare'][0]:.3f} ms, Process "
+            f"{row['process'][0]:.3f} ms, Finalize {row['finalize proposer'][0]:.3f} / "
+            f"{row['finalize validator'][0]:.3f} ms (proposer / validator; "
+            f"{describe_parts(split)}), Commit "
+            f"{row['commit proposer'][0]:.3f} / {row['commit validator'][0]:.3f} ms; height "
+            f"{row['wall_ms']:.3f} ms, device busy {row['busy_ms']:.3f} ms, idle "
+            f"{idle}; "
+            f"check_tx refuses a committed sequence (code {refused.code}); simulate_tx of a PFB "
+            f"gas_used {row['simulated_gas']} == the CPU App's")
+
+    def median(values):
+        return float(np.median(values))
+
+    fin = [r["finalize proposer"][0] for r in rows]
+    parts = {k: median([r["split proposer"].get(k, 0.0) for r in rows]) for k in CHAIN_PARTS}
+    log(f"[{card}] chain k={APP_K} over {CHAIN_HEIGHTS} heights (median): Finalize "
+        f"{median(fin):.3f} ms of {[round(v, 3) for v in fin]} ("
+        f"{describe_parts(parts)}); Commit "
+        f"{median([r['commit proposer'][0] for r in rows]):.3f} ms; Prepare "
+        f"{median([r['prepare'][0] for r in rows]):.3f} ms; Process "
+        f"{median([r['process'][0] for r in rows]):.3f} ms; height "
+        f"{median([r['wall_ms'] for r in rows]):.3f} ms, idle "
+        f"{[None if r['idle'] is None else round(r['idle'], 3) for r in rows]} %")
+    last = rows[-1]
+    return {step: last[key][1] for step, key in (
+        ("prepare", "prepare"), ("process", "process"),
+        ("finalize", "finalize proposer"), ("commit", "commit proposer"))}
+
+
 class StubApp:
     """The querier's view of the app: the square size cap."""
 
@@ -2662,6 +2859,8 @@ def main() -> int:
     phase_done("commitments")
     app_counts = phase_app(torch, card)
     phase_done("app")
+    chain_counts = phase_chain(torch, card)
+    phase_done("chain")
     query_counts = phase_querier(torch, card)
     phase_done("querier")
     bridge_counts = phase_bridge(torch, card)
@@ -2671,7 +2870,8 @@ def main() -> int:
     phase_mesh(torch, card, giant)
     phase_done("mesh")
     log(f"launches: per commitment batch {commit_counts}; per k={APP_K} Prepare "
-        f"{app_counts['prepare']} and non-proposer Process {app_counts['process']}; per proof "
+        f"{app_counts['prepare']} and non-proposer Process {app_counts['process']}; per k={APP_K} "
+        f"chain height's Prepare, Process, Finalize and Commit {chain_counts}; per proof "
         f"query {query_counts}; in the bridge worker over its run {bridge_counts}")
 
     # Each kernel's launches on the k=512 path that runs it: the column

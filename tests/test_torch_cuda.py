@@ -673,3 +673,35 @@ def test_app_prepare_process_round_trip_on_card(cuda):
     assert all(_build.LAUNCHES[k] > 0 for k in ("sha256", "sha256_leaf", "rs_dense"))
     assert apps["validator"].process_proposal(
         BlockData(data.txs, data.square_size, bytes(32))) is False
+
+
+def test_app_chain_finalize_commit_on_card(cuda):
+    """Two heights of a small chain on the card: Prepare and Process on a
+    card App, then finalize_block + commit, with no kernel launched across
+    them; the app hash and TxResults equal App(device="cpu")'s, which
+    finalizes the same txs."""
+    from celestia_app_tpu_torch.app import App
+    from celestia_app_tpu_torch.testutil import BLOCK_INTERVAL_NS, deterministic_genesis, funded_keys
+    from celestia_app_tpu_torch.testutil.blocks import block_txs, next_sequences
+
+    keys = funded_keys(8)
+    genesis = deterministic_genesis(keys)
+    signers = {v.address for v in genesis.validators}
+    card, on_cpu = App(), App(device="cpu")
+    for app in (card, on_cpu):
+        app.init_chain(genesis)
+    for height in (1, 2):
+        txs = block_txs(keys, genesis.chain_id, seed=20 + height, sends=4, pfbs=8,
+                        blob_shares=(2, 6), sequences=next_sequences(card, keys))
+        data = card.prepare_proposal(txs)
+        assert card.process_proposal(data) is True and len(data.txs) == len(txs)
+        time_ns = card.last_block_time_ns + BLOCK_INTERVAL_NS
+        _build.reset_launches()
+        got = card.finalize_block(time_ns, list(data.txs), last_commit_signers=signers)
+        card_hash = card.commit()
+        assert not any(_build.LAUNCHES.values())
+        want = on_cpu.finalize_block(time_ns, list(data.txs), last_commit_signers=signers)
+        assert on_cpu.commit() == card_hash
+        assert [(r.code, r.log, r.gas_wanted, r.gas_used, r.events) for r in got] == [
+            (r.code, r.log, r.gas_wanted, r.gas_used, r.events) for r in want]
+        assert all(r.code == 0 for r in got)

@@ -1,8 +1,8 @@
 """The port imports nothing of JAX, nothing of the JAX package and nothing
 of `cryptography` (the card's machine lacks it; the port's keys are its own).
 
-Two checks: every module of celestia_app_tpu_torch (the multi-device plane
-and the ABCI App included) imported in a fresh interpreter leaves no `jax`,
+Two checks: every module of celestia_app_tpu_torch (the multi-device plane,
+the ABCI App and its block execution's keepers and IBC stack included) imported in a fresh interpreter leaves no `jax`,
 `celestia_app_tpu.*` or `cryptography` module in sys.modules, and no source
 of the port (nor chip_smoke.py) names one in an import statement, including
 imports inside functions.
@@ -52,7 +52,11 @@ def test_importing_every_port_module_loads_no_jax():
                  "parallel.sharded_repair", "kernels.panel_sharded", "serve.shard",
                  "app.app", "app.ante", "crypto.keys", "crypto.ripemd160", "tx.sign",
                  "tx.messages", "modules.blob.types", "state.store", "trace.tracer",
-                 "testutil.blocks"):
+                 "testutil.blocks", "consensus.votes", "modules.gov", "modules.paramfilter",
+                 "modules.authz", "modules.slashing.keeper", "modules.blobstream.keeper",
+                 "app.module_manager", "modules.tokenfilter", "modules.ibc.core",
+                 "modules.ibc.transfer", "modules.ibc.stack", "modules.ibc.client",
+                 "modules.ibc.handshake", "modules.ibc.ica"):
         assert f"celestia_app_tpu_torch.{name}" in result["imported"]
     assert result["forbidden"] == []
 
