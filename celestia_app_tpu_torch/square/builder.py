@@ -21,7 +21,7 @@ the iteration converges and both Build and Construct land on the identical
 layout.
 
 The same layout, byte for byte, as celestia_app_tpu/square/builder.py, of
-which this is a copy without the trace spans and the square journal.
+which this is a copy, with its trace spans and square journal rows.
 """
 
 from __future__ import annotations
@@ -91,7 +91,7 @@ class SquareAccounting:
 
     Every share in the k*k square is attributed to exactly one bucket, so
     tx + pfb + blob + reserved + namespace + tail == size*size always —
-    the invariant the tests pin.
+    the invariant the square journal rows carry and tests pin.
     """
 
     size: int  # square size k
@@ -396,6 +396,16 @@ def _classify(raw_txs: list[bytes]) -> list[tuple[bytes, BlobTx | None]]:
     return [(raw, unmarshal_blob_tx(raw)) for raw in raw_txs]
 
 
+def _journal_export(sq: Square, sp: dict, phase: str, solves: int) -> None:
+    """Shared journal tail of build()/construct(): occupancy onto the
+    span, one square_journal row — one copy so the proposer and validator
+    rows can never drift."""
+    sp["occupancy"] = round(sq.accounting.occupancy, 6)
+    from celestia_app_tpu_torch.trace import square_journal
+
+    square_journal.record(sq, phase=phase, layout_solves=solves)
+
+
 def build(
     raw_txs: list[bytes],
     max_square_size: int,
@@ -407,17 +417,30 @@ def build(
     dropping the rest.  Returns (square, kept_txs) where kept_txs are the
     original bytes in block order (normal txs, then BlobTxs).
     """
-    builder = Builder(max_square_size, subtree_root_threshold)
-    kept_normal: list[bytes] = []
-    kept_blob: list[bytes] = []
-    for raw, btx in _classify(raw_txs):
-        if btx is None:
-            if builder.append_tx(raw):
-                kept_normal.append(raw)
-        else:
-            if builder.append_blob_tx(btx):
-                kept_blob.append(raw)
-    sq = builder.export()
+    from celestia_app_tpu_torch.trace.context import trace_span
+
+    with trace_span(
+        "square_build", layer="square", e2e="square_build",
+        n_candidates=len(raw_txs),
+    ) as sp:
+        builder = Builder(max_square_size, subtree_root_threshold)
+        kept_normal: list[bytes] = []
+        kept_blob: list[bytes] = []
+        for raw, btx in _classify(raw_txs):
+            if btx is None:
+                if builder.append_tx(raw):
+                    kept_normal.append(raw)
+            else:
+                if builder.append_blob_tx(btx):
+                    kept_blob.append(raw)
+        sq = builder.export()
+        sp["n_txs"] = len(kept_normal)
+        sp["n_blob_txs"] = len(kept_blob)
+        sp["n_blobs"] = len(sq.placements)
+        sp["dropped"] = len(raw_txs) - len(kept_normal) - len(kept_blob)
+        sp["layout_solves"] = builder._solves
+        sp["k"] = sq.size
+        _journal_export(sq, sp, "build", builder._solves)
     return sq, kept_normal + kept_blob
 
 
@@ -430,9 +453,19 @@ def construct(
 
     Every tx must fit; raises SquareOverflow otherwise.
     """
-    builder = Builder(max_square_size, subtree_root_threshold)
-    for raw, btx in _classify(raw_txs):
-        ok = builder.append_tx(raw) if btx is None else builder.append_blob_tx(btx)
-        if not ok:
-            raise SquareOverflow("proposal txs overflow the maximum square size")
-    return builder.export()
+    from celestia_app_tpu_torch.trace.context import trace_span
+
+    with trace_span(
+        "square_construct", layer="square", n_candidates=len(raw_txs),
+    ) as sp:
+        builder = Builder(max_square_size, subtree_root_threshold)
+        for raw, btx in _classify(raw_txs):
+            ok = builder.append_tx(raw) if btx is None else builder.append_blob_tx(btx)
+            if not ok:
+                raise SquareOverflow("proposal txs overflow the maximum square size")
+        sq = builder.export()
+        sp["n_blobs"] = len(sq.placements)
+        sp["layout_solves"] = builder._solves
+        sp["k"] = sq.size
+        _journal_export(sq, sp, "construct", builder._solves)
+    return sq

@@ -6,11 +6,14 @@
   tracer.py     the columnar event tables (`traced()`).
   metrics.py    the Prometheus-style registry (`registry()`).
   spans.py      the OTLP span table and the end-to-end phase histogram.
+  square_journal.py  one row per built square, the namespace label cap.
+  slo.py        declarative SLOs and their burn-rate engine.
+  device_ledger.py   the owner registry of resident bytes (partial).
 
 The JAX package's trace layer (celestia_app_tpu/trace/) also has the
-height timeline, the profiler window, the SLO engine, the flight
-recorder, the exposition and the fleet plane; they come over with the
-node integration (ROADMAP, queue 1).
+height timeline, the profiler window, the flight recorder, the exposition
+and the fleet plane; they come over with the fault and serving planes
+(ROADMAP, queue 1).
 """
 
 from celestia_app_tpu_torch.trace.context import (

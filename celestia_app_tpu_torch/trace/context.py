@@ -251,4 +251,6 @@ def export_span(name, ctx, start_unix_ns, elapsed_ns, attrs,
         {**ctx.baggage, **attrs},
     )
     if e2e is not None:
-        spans.observe_e2e(e2e, elapsed_ns / 1e9)
+        spans.observe_e2e(
+            e2e, elapsed_ns / 1e9, namespace=ctx.baggage.get("namespace")
+        )

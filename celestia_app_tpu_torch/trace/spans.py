@@ -37,6 +37,15 @@ E2E_SECONDS_BUCKETS = (
     0.5, 1.0, 2.5, 5.0, 15.0, 60.0,
 )
 
+# Phases that measure ONE request's own lifecycle and may therefore carry
+# its namespace label.  Block-scoped phases (reap, square_build, dispatch,
+# propose, ..., commit) run under the adopting block's context, whose
+# baggage still holds the FIRST reaped tx's namespace — labeling them
+# would bill whole-block time to whichever tenant reaped first and
+# fragment the phase series by reap order, so the label is dropped here,
+# at the single emission point, regardless of what baggage says.
+E2E_TENANT_PHASES = frozenset({"submit", "mempool_wait", "total"})
+
 _FILE_LOCK = threading.Lock()
 _FILE_HANDLE = None
 _FILE_DIR = None
@@ -77,23 +86,27 @@ def record_span(
     _mirror_to_file(row)
 
 
-def observe_e2e(phase: str, seconds: float) -> None:
-    """One observation on the end-to-end lifecycle histogram.  The JAX
-    package adds a per-tenant `namespace` label on the request-scoped
-    phases (submit, mempool_wait, total), through the square journal's
-    cardinality cap; only the mempool's broadcast path puts a namespace in a context's
-    baggage, and neither is ported yet (ROADMAP, queue 1), so the label
-    waits with them."""
+def observe_e2e(phase: str, seconds: float, namespace: str | None = None) -> None:
+    """One observation on the end-to-end lifecycle histogram.  `namespace`
+    (the submitting namespace from TraceContext baggage, when the request
+    carried a blob) adds the per-tenant view on the request-scoped phases
+    (E2E_TENANT_PHASES) — routed through the top-N cardinality cap
+    (trace/square_journal.py) before it becomes a label."""
     from celestia_app_tpu_torch.trace.metrics import registry
     from celestia_app_tpu_torch.trace.tracer import trace_enabled
 
     if not trace_enabled():
         return
+    labels = {"phase": phase}
+    if namespace is not None and phase in E2E_TENANT_PHASES:
+        from celestia_app_tpu_torch.trace.square_journal import capped_namespace_label
+
+        labels["namespace"] = capped_namespace_label(namespace)
     registry().histogram(
         "celestia_e2e_seconds",
         "end-to-end block/request lifecycle time by phase",
         buckets=E2E_SECONDS_BUCKETS,
-    ).observe(seconds, phase=phase)
+    ).observe(seconds, **labels)
 
 
 def _mirror_to_file(row: dict) -> None:

@@ -56,12 +56,14 @@ Phases, in order; any failure raises and the script exits non-zero:
              built on the default stream while the pipeline runs, equal to
              the one-shot forests; a speculation hit and a discard; the
              ring's swap of a pinned slot;
- 10. commitments, 11. app, 12. chain, 13. querier, 14. bridge: the
-             consensus-side entry points, the ABCI App's CheckTx /
-             PrepareProposal / ProcessProposal among them, and three k=128
-             heights of Prepare -> Process -> FinalizeBlock -> Commit (each
-             phase's docstring says what it checks);
- 15. giant   k=1024 and k=2048 (GF(2^16)): the materializing fused, epi and
+ 10. commitments, 11. app, 12. chain, 13. node, 14. querier, 15. bridge:
+             the consensus-side entry points, the ABCI App's CheckTx /
+             PrepareProposal / ProcessProposal among them, two k=128
+             heights of Prepare -> Process -> FinalizeBlock -> Commit, and
+             the in-process node (TestNode, Network, txsim) broadcasting two
+             k=128 blocks' worth of txs into its sharded pool and producing
+             two heights (each phase's docstring says what it checks);
+ 16. giant   k=1024 and k=2048 (GF(2^16)): the materializing fused, epi and
              XOR lowerings and the panel-streamed one ($CELESTIA_PIPE_PANEL:
              64-row panels, 48-row panels at k=1024, the FFT column leg):
              one data root and one EDS per k, the roots-only twins, 64
@@ -69,7 +71,7 @@ Phases, in order; any failure raises and the script exits non-zero:
              lowering as counted from the code, wall and device time and
              peak memory per lowering, a k=1024 BlockPipeline under panel
              mode (batch 1, 16 panels per square);
- 16. mesh    the multi-device plane on 4 logical shards of cuda:0, each with
+ 17. mesh    the multi-device plane on 4 logical shards of cuda:0, each with
              its own stream (and again over the real cards where there are
              two or more): the k=512 sharded extend over 2 and 4 shards and
              its DAH-only twin == single-card compute, sharded repair with
@@ -1781,10 +1783,11 @@ def phase_app(torch, card: str) -> dict:
 # txs through Prepare and Process, finalized at GENESIS_TIME_NS +
 # BLOCK_INTERVAL_NS with every genesis validator in the last commit), which
 # tests/test_torch_finalize.py pins from the JAX App; and the k=128 chain's
-# height count (APP_BLOCK's chain; heights 2 and 3 are new blocks of the same
-# spec, signed at the sequences the chain's state holds).
+# height count (APP_BLOCK's chain; height 2 is a new block of the same spec,
+# signed at the sequences the chain's state holds; two heights, not three, to
+# leave the script's time for phase_node).
 CHAIN_GOLDEN_APP_HASH = "cd64aec07f3f4f72bc51d3677d4a95f45494792d9c76e6ce690bd9e04f98092d"
-CHAIN_HEIGHTS = 3
+CHAIN_HEIGHTS = 2
 
 
 def chain_split():
@@ -1971,6 +1974,344 @@ def phase_chain(torch, card: str) -> dict:
     return {step: last[key][1] for step, key in (
         ("prepare", "prepare"), ("process", "process"),
         ("finalize", "finalize proposer"), ("commit", "commit proposer"))}
+
+
+# phase_node: a short txsim load on a TestNode (NODE_GOLDEN's keys, seed and
+# blocks; the sequences of node_golden_run), whose final app hash and tx index
+# digest tests/test_torch_node.py pins from the JAX TestNode.
+NODE_GOLDEN = {"n_keys": 4, "seed": 12, "blocks": 4}
+NODE_GOLDEN_APP_HASH = "bd13fbc7c479edc82bf50c7e081e72edb5735fad7576e8559b5eace9c3ed6555"
+NODE_GOLDEN_INDEX = "b2bc4053ff7533706b87d69bccf1f7e4cba636ccee15fe5ec1df030439c5e0af"
+
+
+def node_golden_run(node, keys, txsim) -> dict:
+    """NODE_GOLDEN's txsim load on `node`; `txsim` is the txsim.run module of
+    either package."""
+    sequences = [txsim.BlobSequence(blobs_per_pfb=(1, 2), blob_size=(100, 2500)),
+                 txsim.SendSequence(), txsim.StakeSequence(initial_stake=500_000)]
+    return txsim.run(node, keys, sequences, blocks=NODE_GOLDEN["blocks"],
+                     seed=NODE_GOLDEN["seed"])
+
+
+def index_digest(tx_index: dict) -> str:
+    """sha256 of a node's tx index, (hash hex, height, code, log) sorted."""
+    rows = sorted((h.hex(), height, code, log) for h, (height, code, log) in tx_index.items())
+    return hashlib.sha256(json.dumps(rows).encode()).hexdigest()
+
+
+def node_txs(keys, chain_id: str) -> list[bytes]:
+    """Two blocks' worth of APP_BLOCK's txs for a fresh chain: the second
+    block's signed at the sequences that follow the first's."""
+    from celestia_app_tpu_torch.testutil.blocks import block_txs
+
+    spec = APP_BLOCK
+    n = spec["sends"] + spec["pfbs"]
+    after = [len(range(i, n, len(keys))) for i in range(len(keys))]
+    return [t for seed, seqs in ((spec["seed"], None), (spec["seed"] + 1, after))
+            for t in block_txs(keys, chain_id, seed=seed, sends=spec["sends"],
+                               pfbs=spec["pfbs"], blob_shares=spec["blob_shares"],
+                               sequences=seqs)]
+
+
+def node_split(node):
+    """produce_block's host time by part (the mempool's reap, the four ABCI
+    calls, the pool's update; CheckTx inside produce_block is the recheck),
+    and broadcast's (CheckTx, then the admission into the pool)."""
+    return Split([
+        (node.mempool, "reap", "reap"),
+        (node.app, "prepare_proposal", "Prepare"),
+        (node.app, "process_proposal", "Process"),
+        (node.app, "finalize_block", "Finalize"),
+        (node.app, "commit", "Commit"),
+        (node.mempool, "update", "update"),
+        (node.app, "check_tx", "CheckTx"),
+        (node.mempool, "insert", "admission"),
+    ])
+
+
+NODE_PARTS = ("reap", "Prepare", "Process", "Finalize", "Commit", "update", "recheck")
+# The namespace label cap of phase_node ($CELESTIA_NAMESPACE_TOP_N).  The cap
+# is process-wide, first come first admitted, and the squares of the earlier
+# phases (phase_block's alone hold hundreds of namespaces) fill its default
+# of 20; the DRR reap takes turns by capped label, so with room for every
+# label the process sees, this phase's blocks do not depend on which phases
+# ran before it.
+NODE_TOP_N = 1 << 16
+
+
+def phase_node(torch, card: str) -> dict:
+    """The in-process node on the card: TxClient / txsim -> TestNode.broadcast
+    (CheckTx, then admission to the sharded pool) -> produce_block (reap under
+    Block.MaxBytes, Prepare, Process, Finalize, Commit, the pool's update and
+    recheck, the tx index).
+      1. NODE_GOLDEN's txsim load on a card TestNode: its app hash and tx
+         index digest == the JAX TestNode's (pinned).
+      2. APP_BLOCK's chain (256 keys, k=128): two blocks' worth of txs
+         (node_txs) broadcast to a card TestNode and a TestNode(device="cpu");
+         every CheckTx code 0 on both, the same pool; two heights, the
+         first a k=128 one with the reap budget binding (DRR across
+         namespaces): BlockData, TxResults and app hash card == CPU, the
+         pool after each height too.
+         The global pool ($CELESTIA_MEMPOOL_SHARDS=0) fed the same admissions
+         reaps the same txs on both, and a card App and a CPU App prepare
+         the same block of them.
+      3. Network(3) on the card for one k=128 height of APP_BLOCK's first
+         block: the three app hashes agree and equal a CPU Network's.
+      4. qos.install of a spec that blocks one tenant: the card node and the
+         CPU node raise QosThrottled on the same broadcast, same payload.
+      5. An injected launch fault during a broadcast raises DeviceFault and
+         leaves the pool as it was.
+    Logs broadcast ms per tx (CheckTx, admission), each height's
+    produce_block split (reap, Prepare, Process, Finalize, Commit, update,
+    recheck), launches per height and per recheck, the device idle share of
+    a height (torch.profiler, device activity only).  Returns one height's
+    launches and its recheck's."""
+    with environment({"CELESTIA_NAMESPACE_TOP_N": str(NODE_TOP_N)}):
+        return _phase_node(torch, card)
+
+
+def _phase_node(torch, card: str) -> dict:
+    import importlib
+
+    from celestia_app_tpu_torch import qos
+    from celestia_app_tpu_torch.device import DeviceFault
+    from celestia_app_tpu_torch.inclusion import batched
+    from celestia_app_tpu_torch.kernels import _build
+    from celestia_app_tpu_torch.mempool import PriorityMempool
+    from celestia_app_tpu_torch.state.dec import Dec
+    from celestia_app_tpu_torch.testutil import TestNode, deterministic_genesis, funded_keys
+    from celestia_app_tpu_torch.testutil.blocks import block_txs, next_sequences
+    from celestia_app_tpu_torch.testutil.network import Network
+    from celestia_app_tpu_torch.testutil.testnode import NODE_MIN_GAS_PRICE
+    from celestia_app_tpu_torch.trace.square_journal import (
+        capped_namespace_label,
+        namespace_top_n,
+        namespaces_payload,
+        tx_namespace_label,
+    )
+
+    txsim = importlib.import_module("celestia_app_tpu_torch.txsim.run")
+
+    def same(a, b) -> bool:
+        return (a.txs, a.square_size, a.hash) == (b.txs, b.square_size, b.hash)
+
+    log(f"[{card}] node: {namespaces_payload()['admitted']} namespace labels admitted by "
+        f"the earlier phases, cap {namespace_top_n()}")
+
+    # 1. The golden txsim load.
+    t0 = time.perf_counter()
+    keys = funded_keys(NODE_GOLDEN["n_keys"])
+    node = TestNode(deterministic_genesis(keys), keys)
+    stats = node_golden_run(node, keys, txsim)
+    got, digest = node.app.cms.last_app_hash.hex(), index_digest(node.tx_index)
+    if (got, digest) != (NODE_GOLDEN_APP_HASH, NODE_GOLDEN_INDEX) or stats["failed"]:
+        raise AssertionError(f"node golden: app hash {got}, index {digest}, {stats}; want "
+                             f"{NODE_GOLDEN_APP_HASH}, {NODE_GOLDEN_INDEX}")
+    log(f"[{card}] node golden: txsim {stats} over {len(node.blocks)} blocks (k="
+        f"{[b.square_size for b in node.blocks]}), app hash {got} and tx index digest "
+        f"{digest} == the pinned JAX TestNode's ({time.perf_counter() - t0:.3f} s)")
+
+    # 2. Two blocks' worth of txs on a card node and a CPU node.
+    t0 = time.perf_counter()
+    keys = funded_keys(APP_BLOCK["n_keys"])
+    genesis = deterministic_genesis(keys, gov_max_square_size=APP_K)
+    txs = node_txs(keys, genesis.chain_id)
+    made_s = time.perf_counter() - t0
+    on_card, on_cpu = TestNode(genesis, keys), TestNode(genesis, keys, device="cpu")
+    splits = {"card": node_split(on_card), "cpu": node_split(on_cpu)}
+    checked: dict = {}
+    per_tx = []
+    blobs = block_blobs(txs)
+    for name, node in (("card", on_card), ("cpu", on_cpu)):
+        batched._COMMIT_MEMO.clear()
+        if name == "cpu":
+            # The nodes of one process share the commitment memo: fill it
+            # on the CPU in one batch, held equal to what the card node's
+            # CheckTx computed, instead of one plain call per blob.
+            t0 = time.perf_counter()
+            cpu_commitments = batched.create_commitments_batched(blobs, device="cpu")
+            commit_s = time.perf_counter() - t0
+            if cpu_commitments != card_commitments:
+                raise AssertionError("the card node's blob commitments differ from the CPU's")
+        torch.cuda.synchronize()
+        with splits[name].timing():
+            t0 = time.perf_counter()
+            checked[name] = [node.broadcast(t) for t in txs]
+            torch.cuda.synchronize()
+            per_tx.append((time.perf_counter() - t0) * 1e3 / len(txs))
+        if name == "card":
+            card_commitments = batched.create_commitments_batched(blobs)  # memo hits
+    codes = {name: [r.code for r in res] for name, res in checked.items()}
+    if codes["card"] != codes["cpu"] or any(codes["card"]):
+        bad = [(i, c) for i, c in enumerate(codes["card"]) if c]
+        raise AssertionError(f"broadcast: card codes {bad[:8]}, CPU equal {codes['card'] == codes['cpu']}")
+    if on_card.mempool.resident_txs() != on_cpu.mempool.resident_txs():
+        raise AssertionError("broadcast: the card node's pool differs from the CPU node's")
+    bcast = splits["card"].ms
+    n_pfbs = sum(tx_namespace_label(t) is not None for t in txs)
+    resident = on_card.mempool.size_bytes()
+    log(f"[{card}] node broadcast: {len(txs)} txs ({len(txs) - n_pfbs} sends + {n_pfbs} PFBs, "
+        f"{resident / 1e6:.3f} MB resident against a reap budget of "
+        f"{on_card.block_max_bytes() / 1e6:.3f} MB; {made_s:.3f} s to sign), all admitted on "
+        f"both; {per_tx[0]:.3f} ms per tx on the card node (CheckTx "
+        f"{bcast['CheckTx'] / len(txs):.3f}, admission {bcast['admission'] / len(txs):.4f}), "
+        f"{per_tx[1]:.3f} ms on the CPU node (its {len(blobs)} blob commitments made on the "
+        f"CPU in one batch first, {commit_s:.3f} s, == the card node's); the pools are equal "
+        f"({len(on_card.mempool)} txs in {on_card.mempool.shards} shards)")
+
+    heights = []
+    for h in (1, 2):
+        rows = {}
+        for name, node in (("card", on_card), ("cpu", on_cpu)):
+            split = node_split(node)
+            marks = {}
+            inner = node.mempool.resident_txs
+
+            def resident_txs(inner=inner, marks=marks):
+                marks["recheck"] = (time.perf_counter(), dict(_build.LAUNCHES))
+                return inner()
+
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            with split.timing(), swapped(node.mempool, "resident_txs", resident_txs):
+                t0 = time.perf_counter()
+                if name == "card" and h == 1:
+                    out = {}
+                    wall_us, spans = profiled_spans(
+                        torch, lambda: out.setdefault("r", node.produce_block()), host=False)
+                    data, results = out["r"]
+                    busy = sum(b - a for a, b in merged(spans))
+                    idle = 100 - 100 * busy / wall_us if spans else None
+                    wall = wall_us / 1e3  # the profiler's start-up left out
+                else:
+                    data, results = node.produce_block()
+                    busy = idle = None
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3
+            end = dict(_build.LAUNCHES)
+            ms = dict(split.ms)
+            ms["recheck"] = ms.pop("CheckTx", 0.0)
+            rows[name] = {
+                "data": data, "results": tx_results(results), "hash": node.app.cms.last_app_hash,
+                "wall": wall, "ms": ms, "busy": busy, "idle": idle,
+                "launches": end,
+                "recheck_launches": {k: end[k] - marks["recheck"][1][k] for k in end},
+                "pool": node.mempool.resident_txs(),
+            }
+        c, p = rows["card"], rows["cpu"]
+        if not same(c["data"], p["data"]) or c["results"] != p["results"] or c["hash"] != p["hash"]:
+            raise AssertionError(f"height {h}: card BlockData / TxResults / app hash differ from "
+                                 f"the CPU node's ({c['hash'].hex()} vs {p['hash'].hex()})")
+        if c["pool"] != p["pool"]:
+            raise AssertionError(f"height {h}: the card node's pool differs from the CPU node's")
+        if (h == 1 and c["data"].square_size != APP_K) or any(r[0] for r in c["results"]):
+            raise AssertionError(f"height {h}: k={c['data'].square_size}, codes "
+                                 f"{[r[0] for r in c['results'] if r[0]][:8]}")
+        check_launches(f"node height {h}", c["launches"],
+                       {"sha256_leaf": None, "sha256": None, "rs_dense": 2})
+        heights.append(c)
+        parts, cpu_parts = (", ".join(f"{k} {r['ms'].get(k, 0.0):.3f}" for k in NODE_PARTS)
+                            for r in (c, p))
+        device = ("device busy not measured" if c["idle"] is None else
+                  f"device busy {c['busy'] / 1e3:.3f} ms, idle {c['idle']:.3f} %")
+        log(f"[{card}] node height {h}: {len(c['data'].txs)} txs, k={c['data'].square_size}, "
+            f"all code 0; BlockData, TxResults and app hash {c['hash'].hex()} == the CPU "
+            f"node's; pool after: {len(c['pool'])} txs == the CPU node's; produce_block "
+            f"{c['wall']:.3f} ms ({parts}; CPU node {p['wall']:.3f} ms: {cpu_parts}); launches "
+            f"{c['launches']}, of them the recheck's {c['recheck_launches']}; {device}")
+    first_reap = list(heights[0]["data"].txs)
+
+    # The global pool: the same admissions, the same reap on card and CPU.
+    with environment({"CELESTIA_MEMPOOL_SHARDS": "0"}):
+        pools = [PriorityMempool(), PriorityMempool()]
+    budget = on_card.block_max_bytes()
+    for t, res in zip(txs, checked["card"]):
+        prio = next(e[1] for e in res.events if e[0] == "priority")
+        for pool in pools:
+            pool.insert(t, prio, 0)
+    reaps = [pool.reap(budget) for pool in pools]
+    if pools[0].shards != 0 or reaps[0] != reaps[1]:
+        raise AssertionError(f"global pool: shards {pools[0].shards}, reaps differ")
+    blocks = [fresh_app(genesis, node_min_gas_price=Dec.from_str(NODE_MIN_GAS_PRICE),
+                        **kw).prepare_proposal(reaps[0]) for kw in ({}, {"device": "cpu"})]
+    if not same(*blocks):
+        raise AssertionError("global pool: the card App's block differs from the CPU App's")
+    log(f"[{card}] node under CELESTIA_MEMPOOL_SHARDS=0: {len(reaps[0])} txs reaped in pure "
+        f"priority order, the same on two pools; card Prepare == CPU Prepare: "
+        f"{len(blocks[0].txs)} txs, k={blocks[0].square_size}, {blocks[0].hash.hex()} (the "
+        f"sharded node's DRR reap gave a block of {len(first_reap)} txs)")
+
+    # 3. Network(3) on the card for one k=128 height.
+    first = txs[:APP_BLOCK["sends"] + APP_BLOCK["pfbs"]]
+    nets = {}
+    for name, kw in (("card", {}), ("cpu", {"device": "cpu"})):
+        net = Network(3, genesis, keys, **kw)
+        if any(net.broadcast(t).code for t in first):
+            raise AssertionError(f"Network ({name}): a broadcast was rejected")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        data, results = net.produce_block()
+        torch.cuda.synchronize()
+        nets[name] = (data, tx_results(results), [n.cms.last_app_hash for n in net.nodes],
+                      (time.perf_counter() - t0) * 1e3)
+    (cd, cr, ch, cms), (pd, pr, ph, pms) = nets["card"], nets["cpu"]
+    if len(set(ch)) != 1 or ch != ph or not same(cd, pd) or cr != pr or len(cd.txs) != len(first):
+        raise AssertionError(f"Network(3): card hashes {[h.hex()[:16] for h in ch]}, CPU "
+                             f"{[h.hex()[:16] for h in ph]}, {len(cd.txs)} of {len(first)} txs")
+    log(f"[{card}] node Network(3): one k={cd.square_size} height of {len(cd.txs)} txs, the "
+        f"three card app hashes {ch[0].hex()} agree and == the CPU Network's; {cms:.3f} ms on "
+        f"the card, {pms:.3f} ms on the CPU")
+
+    # 4. QoS: one tenant blocked, on a fresh card node and CPU node.  The
+    # seed is APP_BLOCK's, so the blobs' namespaces are tenants the label cap
+    # has admitted already (trace/square_journal.py).
+    small = funded_keys(4)
+    small_genesis = deterministic_genesis(small)
+    offered = block_txs(small, small_genesis.chain_id, seed=APP_BLOCK["seed"], sends=2,
+                        pfbs=6, blob_shares=(1, 4))
+    tenant = capped_namespace_label(tx_namespace_label(offered[-1]))
+    outcomes = []
+    try:
+        qos.install(f"{tenant}.tx_rate=0")
+        for kw in ({}, {"device": "cpu"}):
+            node, seen = TestNode(small_genesis, small, **kw), []
+            for t in offered:
+                try:
+                    seen.append(node.broadcast(t).code)
+                except qos.QosThrottled as e:
+                    seen.append(qos.throttle_body(e))
+            outcomes.append((seen, node.mempool.resident_txs()))
+    finally:
+        qos.uninstall()
+    refused = [o for o in outcomes[0][0] if isinstance(o, bytes)]
+    if outcomes[0] != outcomes[1] or not refused or 0 not in outcomes[0][0]:
+        raise AssertionError(f"QoS: card {outcomes[0][0]} vs CPU {outcomes[1][0]}")
+    log(f"[{card}] node QoS: tenant {tenant} at tx_rate=0: {len(refused)} of {len(offered)} "
+        f"broadcasts refused on the card node and the same on the CPU node, the same pools; "
+        f"{refused[0].decode()}")
+
+    # 5. An injected launch fault during a broadcast.
+    def failing_launch(kernel, *args, **kwargs):
+        raise RuntimeError(f"injected launch fault in {kernel}")
+
+    fresh = block_txs(keys, genesis.chain_id, seed=9_001, sends=0, pfbs=1,
+                      blob_shares=APP_BLOCK["blob_shares"],
+                      sequences=next_sequences(on_card.app, keys))[0]
+    before = on_card.mempool.resident_txs()
+    batched._COMMIT_MEMO.clear()
+    try:
+        with swapped(_build, "launch", failing_launch):
+            on_card.broadcast(fresh)
+    except DeviceFault as e:
+        if "injected launch fault" not in repr(e.__cause__):
+            raise AssertionError(f"broadcast: not the injected fault: {e!r}") from e
+        log(f"[{card}] node: an injected launch fault in a broadcast raises {e!r}")
+    else:
+        raise AssertionError("broadcast admitted a tx through a launch fault")
+    if on_card.mempool.resident_txs() != before:
+        raise AssertionError("broadcast: the pool changed on a device fault")
+    last = heights[-1]
+    return {"height": last["launches"], "recheck": last["recheck_launches"]}
 
 
 class StubApp:
@@ -2861,6 +3202,8 @@ def main() -> int:
     phase_done("app")
     chain_counts = phase_chain(torch, card)
     phase_done("chain")
+    node_counts = phase_node(torch, card)
+    phase_done("node")
     query_counts = phase_querier(torch, card)
     phase_done("querier")
     bridge_counts = phase_bridge(torch, card)
@@ -2871,7 +3214,9 @@ def main() -> int:
     phase_done("mesh")
     log(f"launches: per commitment batch {commit_counts}; per k={APP_K} Prepare "
         f"{app_counts['prepare']} and non-proposer Process {app_counts['process']}; per k={APP_K} "
-        f"chain height's Prepare, Process, Finalize and Commit {chain_counts}; per proof "
+        f"chain height's Prepare, Process, Finalize and Commit {chain_counts}; per k={APP_K} "
+        f"node height {node_counts['height']}, of them its recheck's {node_counts['recheck']}; "
+        f"per proof "
         f"query {query_counts}; in the bridge worker over its run {bridge_counts}")
 
     # Each kernel's launches on the k=512 path that runs it: the column

@@ -705,3 +705,86 @@ def test_app_chain_finalize_commit_on_card(cuda):
         assert [(r.code, r.log, r.gas_wanted, r.gas_used, r.events) for r in got] == [
             (r.code, r.log, r.gas_wanted, r.gas_used, r.events) for r in want]
         assert all(r.code == 0 for r in got)
+
+
+def test_node_txsim_golden_on_card(cuda):
+    """The pinned txsim load on a card TestNode: the JAX TestNode's app hash
+    and tx index (chip_smoke.NODE_GOLDEN_*), with kernels launched on the
+    way."""
+    import importlib
+
+    import chip_smoke
+    from celestia_app_tpu_torch.testutil import TestNode, deterministic_genesis, funded_keys
+
+    keys = funded_keys(chip_smoke.NODE_GOLDEN["n_keys"])
+    node = TestNode(deterministic_genesis(keys), keys)
+    _build.reset_launches()
+    stats = chip_smoke.node_golden_run(
+        node, keys, importlib.import_module("celestia_app_tpu_torch.txsim.run"))
+    assert stats["failed"] == 0 and _build.LAUNCHES["rs_dense"] > 0
+    assert node.app.cms.last_app_hash.hex() == chip_smoke.NODE_GOLDEN_APP_HASH
+    assert chip_smoke.index_digest(node.tx_index) == chip_smoke.NODE_GOLDEN_INDEX
+
+
+def test_node_and_network_on_card_equal_cpu(cuda):
+    """Broadcasts on a card TestNode and a TestNode(device="cpu") with the
+    reap budget binding, two heights, then a 3-validator Network on the card
+    against one on the CPU: the same pools, blocks, TxResults and hashes."""
+    import dataclasses
+
+    from celestia_app_tpu_torch.testutil import TestNode, deterministic_genesis, funded_keys
+    from celestia_app_tpu_torch.testutil.blocks import block_txs
+    from celestia_app_tpu_torch.testutil.network import Network
+
+    keys = funded_keys(8)
+    genesis = dataclasses.replace(deterministic_genesis(keys), block_max_bytes=40_000)
+    txs = block_txs(keys, genesis.chain_id, seed=30, sends=6, pfbs=24, blob_shares=(2, 8))
+    legs = []
+    for device in (None, "cpu"):
+        node = TestNode(genesis, keys, device=device)
+        codes = [node.broadcast(t).code for t in txs]
+        heights = []
+        for _ in range(2):
+            data, results = node.produce_block()
+            heights.append(((data.txs, data.square_size, data.hash),
+                            [(r.code, r.log, r.gas_used, r.events) for r in results],
+                            node.app.cms.last_app_hash, node.mempool.resident_txs()))
+        net = Network(3, genesis, keys, device=device)
+        for t in txs[:12]:
+            assert net.broadcast(t).code == 0
+        data, _ = net.produce_block()
+        legs.append((codes, heights, node.tx_index, data.hash,
+                     [n.cms.last_app_hash for n in net.nodes]))
+    assert legs[0] == legs[1]
+    assert not any(legs[0][0]) and len(legs[0][1][0][3]) > 0  # the budget bound
+
+
+def test_node_concurrent_admission_on_card(cuda):
+    """CheckTx on the card App in turn, then admission into the node's
+    sharded pool from 8 threads: the pool the global pool gets in order."""
+    import threading
+
+    from celestia_app_tpu_torch.mempool import PriorityMempool
+    from celestia_app_tpu_torch.testutil import TestNode, deterministic_genesis, funded_keys
+    from celestia_app_tpu_torch.testutil.blocks import block_txs
+
+    keys = funded_keys(16)
+    node = TestNode(deterministic_genesis(keys), keys)
+    txs = block_txs(keys, node.chain_id, seed=31, sends=16, pfbs=48, blob_shares=(1, 4))
+    rows = []
+    for t in txs:
+        res = node.app.check_tx(t)
+        assert res.code == 0
+        rows.append((t, next(e[1] for e in res.events if e[0] == "priority")))
+    ref = PriorityMempool(shards=0)
+    for t, prio in rows:
+        assert ref.insert(t, prio, 0)
+    threads = [threading.Thread(target=lambda part: [node.mempool.insert(t, p, 0) for t, p in part],
+                                args=(rows[i::8],)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    assert sorted(node.mempool.resident_txs()) == sorted(ref.resident_txs())
+    assert node.mempool.size_bytes() == ref.size_bytes()

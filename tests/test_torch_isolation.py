@@ -2,7 +2,9 @@
 of `cryptography` (the card's machine lacks it; the port's keys are its own).
 
 Two checks: every module of celestia_app_tpu_torch (the multi-device plane,
-the ABCI App and its block execution's keepers and IBC stack included) imported in a fresh interpreter leaves no `jax`,
+the ABCI App and its block execution's keepers and IBC stack, the mempool,
+the in-process node and its clients included) imported in a fresh
+interpreter leaves no `jax`,
 `celestia_app_tpu.*` or `cryptography` module in sys.modules, and no source
 of the port (nor chip_smoke.py) names one in an import statement, including
 imports inside functions.
@@ -56,7 +58,10 @@ def test_importing_every_port_module_loads_no_jax():
                  "modules.authz", "modules.slashing.keeper", "modules.blobstream.keeper",
                  "app.module_manager", "modules.tokenfilter", "modules.ibc.core",
                  "modules.ibc.transfer", "modules.ibc.stack", "modules.ibc.client",
-                 "modules.ibc.handshake", "modules.ibc.ica"):
+                 "modules.ibc.handshake", "modules.ibc.ica", "mempool", "qos",
+                 "trace.square_journal", "trace.slo", "trace.device_ledger",
+                 "testutil.testnode", "testutil.network", "user.errors", "user.signer",
+                 "user.tx_client", "txsim.run"):
         assert f"celestia_app_tpu_torch.{name}" in result["imported"]
     assert result["forbidden"] == []
 
