@@ -35,8 +35,10 @@ hide the device:
   * speculate_proposal returns False only on a mismatch (a square that does
     not build, or whose size or emptiness differs from the proposal's); a
     fault of the speculative extend raises.
-The serve plane's EDS retention (the JAX App's square_eds and
-last_eds_for_root) is not part of the port.
+The serve plane's rebuild sources are the JAX App's: `last_eds_for_root`
+hands the commit hook of rpc/server.ServingNode the square this App just
+extended (kept while $CELESTIA_SERVE_HEIGHTS > 0), and `square_eds` extends
+a rebuilt square on the App's device.
 """
 
 from __future__ import annotations
@@ -298,6 +300,9 @@ class App:
         # node computed enter it, and Process still rebuilds the square, so
         # a proposer's claim is never trusted.  Bounded FIFO.
         self._own_roots: dict[tuple[int, bytes], bytes] = {}
+        # (square key, EDS, DAH hash) of the freshest square _square_root
+        # extended, for the serve plane's commit-time retention.
+        self._last_eds: tuple | None = None
 
     # --- keeper views over committed state ---------------------------------
     @property
@@ -566,8 +571,39 @@ class App:
             digest.update(s)
         return (size, digest.digest())
 
+    def square_eds(self, size: int, share_bytes: list[bytes]):
+        """The extended square for a built square's shares — the serve
+        plane's rebuild source (rpc/server._rebuild_eds): when the
+        content matches the square this app just extended, the SAME
+        device-resident handle comes back with zero extra extensions;
+        otherwise (a cache-miss rebuild of an old height) it extends
+        fresh.  Deliberately NOT a `_last_eds` writer: that slot belongs
+        to the consensus path (_square_root), and a concurrent read-side
+        rebuild overwriting it would displace the just-extended square
+        right before the commit hook retains it.  The rebuild's caller
+        admits the result to the forest cache, so repeats are already
+        covered there."""
+        key = self._square_key(size, share_bytes)
+        last = self._last_eds
+        if last is not None and last[0] == key:
+            return last[1]
+        with on_device("extend"):
+            return extend_shares(share_bytes, device=self.device)
+
+    def last_eds_for_root(self, data_root: bytes):
+        """The freshest extended square IF its DAH hash is `data_root` —
+        how the serving plane's commit hook retains the just-committed
+        height without reconstructing the square (no second layout
+        solve, no duplicate square-journal row, no device work)."""
+        last = self._last_eds
+        if last is not None and last[2] == data_root:
+            return last[1]
+        return None
+
     def _square_root(self, size: int, share_bytes: list[bytes]) -> bytes:
         """DAH hash of a built square, memoized on the square's content."""
+        from celestia_app_tpu_torch.serve.cache import serve_heights
+
         key = self._square_key(size, share_bytes)
         cached = self._own_roots.get(key)
         if cached is not None:
@@ -575,6 +611,12 @@ class App:
         with on_device("extend + DAH"):
             eds = extend_shares(share_bytes, device=self.device)
             root = DataAvailabilityHeader.from_eds(eds).hash()
+        if serve_heights() > 0:
+            # Keep the freshest EDS handle alive for the serve plane's
+            # commit-time retention (ONE handle; the forest cache owns
+            # longer-term residency).  Gated so a node with serving
+            # disabled holds no extra device memory.
+            self._last_eds = (key, eds, root)
         while len(self._own_roots) >= 4:
             self._own_roots.pop(next(iter(self._own_roots)))
         self._own_roots[key] = root

@@ -9,11 +9,12 @@
   square_journal.py  one row per built square, the namespace label cap.
   slo.py        declarative SLOs and their burn-rate engine.
   device_ledger.py   the owner registry of resident bytes (partial).
+  round_journal.py   one row per consensus (height, round).
+  flight_recorder.py the anomaly black box's `note_trigger` (partial).
 
 The JAX package's trace layer (celestia_app_tpu/trace/) also has the
-height timeline, the profiler window, the flight recorder, the exposition
-and the fleet plane; they come over with the fault and serving planes
-(ROADMAP, queue 1).
+height timeline, the profiler window, the exposition and the fleet plane;
+they come over with the fault and serving planes (ROADMAP, queue 1).
 """
 
 from celestia_app_tpu_torch.trace.context import (

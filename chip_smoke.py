@@ -56,14 +56,17 @@ Phases, in order; any failure raises and the script exits non-zero:
              built on the default stream while the pipeline runs, equal to
              the one-shot forests; a speculation hit and a discard; the
              ring's swap of a pinned slot;
- 10. commitments, 11. app, 12. chain, 13. node, 14. querier, 15. bridge:
-             the consensus-side entry points, the ABCI App's CheckTx /
+ 10. commitments, 11. app, 12. chain, 13. node, 14. consensus, 15. querier,
+ 16. bridge: the consensus-side entry points, the ABCI App's CheckTx /
              PrepareProposal / ProcessProposal among them, two k=128
-             heights of Prepare -> Process -> FinalizeBlock -> Commit, and
-             the in-process node (TestNode, Network, txsim) broadcasting two
+             heights of Prepare -> Process -> FinalizeBlock -> Commit, the
+             in-process node (TestNode, Network, txsim) broadcasting two
              k=128 blocks' worth of txs into its sharded pool and producing
-             two heights (each phase's docstring says what it checks);
- 16. giant   k=1024 and k=2048 (GF(2^16)): the materializing fused, epi and
+             two heights, and Tendermint consensus: 3 live ServingNodes of
+             4 validators gossiping over localhost HTTP through 3 heights,
+             one with a dead proposer and one with an injected launch fault
+             (each phase's docstring says what it checks);
+ 17. giant   k=1024 and k=2048 (GF(2^16)): the materializing fused, epi and
              XOR lowerings and the panel-streamed one ($CELESTIA_PIPE_PANEL:
              64-row panels, 48-row panels at k=1024, the FFT column leg):
              one data root and one EDS per k, the roots-only twins, 64
@@ -71,7 +74,7 @@ Phases, in order; any failure raises and the script exits non-zero:
              lowering as counted from the code, wall and device time and
              peak memory per lowering, a k=1024 BlockPipeline under panel
              mode (batch 1, 16 panels per square);
- 17. mesh    the multi-device plane on 4 logical shards of cuda:0, each with
+ 18. mesh    the multi-device plane on 4 logical shards of cuda:0, each with
              its own stream (and again over the real cards where there are
              two or more): the k=512 sharded extend over 2 and 4 shards and
              its DAH-only twin == single-card compute, sharded repair with
@@ -2056,7 +2059,9 @@ def phase_node(torch, card: str) -> dict:
          reaps the same txs on both, and a card App and a CPU App prepare
          the same block of them.
       3. Network(3) on the card for one k=128 height of APP_BLOCK's first
-         block: the three app hashes agree and equal a CPU Network's.
+         block: the three app hashes agree and equal a CPU Network(1)'s (one
+         CPU App: the height's block and app hash do not depend on how many
+         Apps replicate it, and the CPU's are the slow ones).
       4. qos.install of a spec that blocks one tenant: the card node and the
          CPU node raise QosThrottled on the same broadcast, same payload.
       5. An injected launch fault during a broadcast raises DeviceFault and
@@ -2244,8 +2249,8 @@ def _phase_node(torch, card: str) -> dict:
     # 3. Network(3) on the card for one k=128 height.
     first = txs[:APP_BLOCK["sends"] + APP_BLOCK["pfbs"]]
     nets = {}
-    for name, kw in (("card", {}), ("cpu", {"device": "cpu"})):
-        net = Network(3, genesis, keys, **kw)
+    for name, n, kw in (("card", 3, {}), ("cpu", 1, {"device": "cpu"})):
+        net = Network(n, genesis, keys, **kw)
         if any(net.broadcast(t).code for t in first):
             raise AssertionError(f"Network ({name}): a broadcast was rejected")
         torch.cuda.synchronize()
@@ -2255,12 +2260,13 @@ def _phase_node(torch, card: str) -> dict:
         nets[name] = (data, tx_results(results), [n.cms.last_app_hash for n in net.nodes],
                       (time.perf_counter() - t0) * 1e3)
     (cd, cr, ch, cms), (pd, pr, ph, pms) = nets["card"], nets["cpu"]
-    if len(set(ch)) != 1 or ch != ph or not same(cd, pd) or cr != pr or len(cd.txs) != len(first):
+    if len(set(ch)) != 1 or set(ch) != set(ph) or not same(cd, pd) or cr != pr \
+            or len(cd.txs) != len(first):
         raise AssertionError(f"Network(3): card hashes {[h.hex()[:16] for h in ch]}, CPU "
                              f"{[h.hex()[:16] for h in ph]}, {len(cd.txs)} of {len(first)} txs")
     log(f"[{card}] node Network(3): one k={cd.square_size} height of {len(cd.txs)} txs, the "
-        f"three card app hashes {ch[0].hex()} agree and == the CPU Network's; {cms:.3f} ms on "
-        f"the card, {pms:.3f} ms on the CPU")
+        f"three card app hashes {ch[0].hex()} agree and == the CPU Network(1)'s; {cms:.3f} ms "
+        f"on the card, {pms:.3f} ms on the CPU")
 
     # 4. QoS: one tenant blocked, on a fresh card node and CPU node.  The
     # seed is APP_BLOCK's, so the blobs' namespaces are tenants the label cap
@@ -2312,6 +2318,486 @@ def _phase_node(torch, card: str) -> dict:
         raise AssertionError("broadcast: the pool changed on a device fault")
     last = heights[-1]
     return {"height": last["launches"], "recheck": last["recheck_launches"]}
+
+
+#: phase_consensus: a 4-validator genesis, 3 validators live.  Validator 3,
+#: the round-0 proposer of height 3 in the rotation (addresses sorted,
+#: shifted by height - 1: validators 2, 1, 3, 0), is the dead one; validator
+#: 0's check of height 1's first proposal takes a one-shot injected launch
+#: fault.  The txs go to validator 1, not height 1's proposer.
+CONSENSUS_DEAD = 3
+CONSENSUS_DEAD_HEIGHT = 3
+CONSENSUS_VICTIM = 0
+CONSENSUS_FAULT_HEIGHT = 1
+CONSENSUS_ENTRY = 1
+CONSENSUS_HEIGHTS = 3
+#: The App calls of a proposal's check, and those that extend a square.
+CHECK_PARTS = ("speculate", "Process")
+EXTEND_PARTS = ("Prepare",) + CHECK_PARTS
+
+
+def extend_launches(k: int) -> dict:
+    """Launches of one extend + DAH on the default (fused, dense) path at
+    square size k: the row and column RS phases, the leaf digests, and
+    sha256 for each level of the row and the column trees, then for the
+    leaves and each level of the tree over the 4k roots (the data root)."""
+    levels = (2 * k).bit_length() - 1
+    return {"rs_dense": 2, "sha256_leaf": 1, "sha256": 2 * levels + levels + 2}
+
+
+def forest_launches(k: int) -> dict:
+    """Launches of one retained forest (serve/cache.py) at square size k:
+    the leaf digests, then each level of the row and the column trees."""
+    return {"sha256_leaf": 1, "sha256": 2 * ((2 * k).bit_length() - 1)}
+
+
+class Attribution:
+    """What each validator of an in-process cluster did on the card, per
+    height: its App calls and its serve retention run tagged (validator,
+    height, part) on their thread; `launch` (in place of _build.launch)
+    counts each launch under the caller's tag and `pipelines` (in place of
+    da.eds._cached_pipeline) each extend with its square size.  One launch
+    fault can be armed for a (validator, height, parts)."""
+
+    def __init__(self):
+        self.tls = threading.local()
+        self.lock = threading.Lock()
+        self.launches: dict = {}   # (who, height, part) -> {kernel: n}
+        self.extends: dict = {}    # (who, height, part) -> [k, ...]
+        self.ms: dict = {}         # (who, height, part) -> host ms
+        self.commits: dict = {}    # (who, height) -> (perf_counter, WAL fsync ms so far)
+        self.votes: dict = {}      # who -> [own votes broadcast]
+        self.handled: dict = {}    # who -> [DeviceFault reprs out of ConsensusDriver.handle]
+        self.armed = None          # (who, height, parts)
+        self.faults: list = []     # (who, height, part, kernel)
+
+    def tagged(self, who: int, part: str, height_of, fn):
+        def call(*args, **kwargs):
+            prev = getattr(self.tls, "tag", None)
+            tag = self.tls.tag = (who, height_of(*args), part)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                with self.lock:
+                    self.ms[tag] = self.ms.get(tag, 0.0) + (time.perf_counter() - t0) * 1e3
+                self.tls.tag = prev
+        return call
+
+    def launch(self, inner):
+        def launch(kernel, *args, **kwargs):
+            tag = getattr(self.tls, "tag", None)
+            if tag is not None:
+                with self.lock:
+                    armed, fire = self.armed, False
+                    if armed is not None and tag[:2] == armed[:2] and tag[2] in armed[2]:
+                        self.armed, fire = None, True
+                        self.faults.append(tag + (kernel,))
+                if fire:
+                    raise RuntimeError(f"injected launch fault in {kernel}")
+            inner(kernel, *args, **kwargs)
+            if tag is not None:
+                with self.lock:
+                    counts = self.launches.setdefault(tag, {})
+                    counts[kernel] = counts.get(kernel, 0) + 1
+        return launch
+
+    def pipelines(self, inner):
+        def cached(k, *args):
+            run = inner(k, *args)
+
+            def counted(*a, **kw):
+                tag = getattr(self.tls, "tag", None)
+                out = run(*a, **kw)  # an extend that raised (the injected fault) is not counted
+                if tag is not None:
+                    with self.lock:
+                        self.extends.setdefault(tag, []).append(k)
+                return out
+            return counted
+        cached.cache_info = inner.cache_info
+        return cached
+
+    def attach(self, who: int, node, stop_at: int) -> None:
+        """Tag `node`'s App calls and retention, time its commits, record its
+        own votes and the DeviceFaults out of its driver's handle, and let
+        its driver start no height after `stop_at`."""
+        from celestia_app_tpu_torch.device import DeviceFault
+        from celestia_app_tpu_torch.rpc.gossip import BroadcastVote
+
+        app, driver = node.app, node.consensus_driver
+        # finalize_block moves app.height to the block's height; Commit and
+        # the recheck's CheckTx run after it.
+        following = lambda *a: app.height + 1  # noqa: E731
+        finalized = lambda *a: app.height  # noqa: E731
+        for name, part, height_of in (
+                ("check_tx", "CheckTx", finalized), ("prepare_proposal", "Prepare", following),
+                ("speculate_proposal", "speculate", following),
+                ("process_proposal", "Process", following),
+                ("finalize_block", "Finalize", following), ("commit", "Commit", finalized)):
+            setattr(app, name, self.tagged(who, part, height_of, getattr(app, name)))
+        node._retain_for_serving = self.tagged(who, "retain", lambda h, data: h,
+                                               node._retain_for_serving)
+        inner_commit, inner_handle = node._commit_block_data, driver.handle
+        inner_execute = driver._execute_locked
+        self.votes[who], self.handled[who] = [], []
+
+        def commit_block(*args, **kwargs):
+            try:
+                return inner_commit(*args, **kwargs)
+            finally:
+                with self.lock:
+                    self.commits[(who, app.height)] = (time.perf_counter(),
+                                                       driver.wal.fsync_ms_total)
+                if app.height >= stop_at:
+                    driver._stopped = True  # the run ends here: no next height
+
+        def handle(msg):
+            try:
+                return inner_handle(msg)
+            except DeviceFault as e:
+                self.handled[who].append(repr(e))
+                raise
+
+        def execute(effects, outbox):
+            self.votes[who] += [e.vote for e in effects if isinstance(e, BroadcastVote)]
+            return inner_execute(effects, outbox)
+
+        node._commit_block_data, driver.handle = commit_block, handle
+        driver._execute_locked = execute
+
+    def launches_at(self, who: int, h: int) -> dict:
+        """All of validator `who`'s launches tagged with height `h`."""
+        out: dict = {}
+        for (w, height, _), counts in self.launches.items():
+            if (w, height) == (who, h):
+                for name, n in counts.items():
+                    out[name] = out.get(name, 0) + n
+        return out
+
+
+def consensus_timeouts(prepare_s: float) -> dict:
+    """Round timeouts (base, per-round delta) sized to a measured k=128
+    Prepare: a non-proposer's verdict comes after the proposer's Prepare and
+    Process and its own speculation and Process, three validators taking
+    turns on one interpreter, so the propose timeout is five Prepares (on
+    an H100's host a k=128 proposal of 520 txs took longer than four)."""
+    step = round(max(2.0, prepare_s), 3)
+    return {"propose": (round(max(6.0, 5 * prepare_s), 3), 0.5),
+            "prevote": (step, 0.5), "precommit": (step, 0.5)}
+
+
+def phase_consensus(torch, card: str) -> dict:
+    """Tendermint consensus on the card: 3 live ServingNodes of a 4-validator
+    genesis, each with a ConsensusDriver (round machine, vote WAL, round
+    journal) and gossip over localhost HTTP, $CELESTIA_PIPE_SPECULATE=on.
+    A k=128 block's worth of APP_BLOCK's txs is broadcast to validator 1,
+    relayed to the others, and the cluster commits CONSENSUS_HEIGHTS
+    heights under a Block.MaxBytes of half those txs' bytes, so the first
+    two heights carry them: at height 1 validator 0's proposal check takes a
+    one-shot injected launch fault, and height 3's round-0 proposer is the
+    dead validator.  Checks: both heights decide in round >= 1, the victim raised
+    DeviceFault out of its driver's handle and prevoted nothing but nil in
+    that round; every live node holds the same BlockData and app hash at
+    every height, == a TestNode(device="cpu") replaying the blocks; every
+    Commit record verifies; the round_journal rows name each height's
+    deciding round; speculation hits > 0; the retained forests serve share
+    proofs that verify against each data root; each validator's launches
+    per height == 2 rs_dense, 1 sha256_leaf and 2·log2(2k)+log2(4k)+1
+    sha256 per extend it ran, plus 1 sha256_leaf and 2·log2(2k) sha256 per
+    retained forest.  Logs per height the wall time, the round, each
+    validator's Prepare / Process / Finalize / Commit ms and WAL fsync ms,
+    the speculation outcomes and the device busy time and idle share.
+    Returns each validator's launches per height."""
+    with environment({"CELESTIA_NAMESPACE_TOP_N": str(NODE_TOP_N),
+                      "CELESTIA_PIPE_SPECULATE": "on"}):
+        return _phase_consensus(torch, card)
+
+
+def _phase_consensus(torch, card: str) -> dict:
+    import dataclasses
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from celestia_app_tpu_torch.consensus import PREVOTE, verify_commit
+    from celestia_app_tpu_torch.crypto import PrivateKey
+    from celestia_app_tpu_torch.da import eds as eds_mod
+    from celestia_app_tpu_torch.da.eds import speculator
+    from celestia_app_tpu_torch.kernels import _build
+    from celestia_app_tpu_torch.rpc.server import ServingNode, serve
+    from celestia_app_tpu_torch.serve import ProofSampler
+    from celestia_app_tpu_torch.state.dec import Dec
+    from celestia_app_tpu_torch.testutil import TestNode, deterministic_genesis, funded_keys
+    from celestia_app_tpu_torch.testutil.testnode import NODE_MIN_GAS_PRICE
+    from celestia_app_tpu_torch.trace.round_journal import RoundJournal
+    from celestia_app_tpu_torch.trace.tracer import traced
+
+    t_phase = time.perf_counter()
+    keys = funded_keys(APP_BLOCK["n_keys"])
+    genesis = deterministic_genesis(keys, n_validators=4, gov_max_square_size=APP_K)
+    txs = node_txs(keys, genesis.chain_id)[:APP_BLOCK["sends"] + APP_BLOCK["pfbs"]]
+    genesis = dataclasses.replace(genesis, block_max_bytes=sum(map(len, txs)) // 2)
+    order = sorted(PrivateKey.from_seed(f"validator-{i}".encode()).public_key().address()
+                   for i in range(4))
+    dead = PrivateKey.from_seed(f"validator-{CONSENSUS_DEAD}".encode()).public_key().address()
+    if order[(CONSENSUS_DEAD_HEIGHT - 1) % 4] != dead:
+        raise AssertionError("the dead validator is not height "
+                             f"{CONSENSUS_DEAD_HEIGHT}'s round-0 proposer")
+    t0 = time.perf_counter()
+    probe = fresh_app(genesis, node_min_gas_price=Dec.from_str(NODE_MIN_GAS_PRICE))
+    probe.prepare_proposal(txs)
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    del probe
+    timeouts = consensus_timeouts(prepare_s)
+
+    live = [i for i in range(4) if i != CONSENSUS_DEAD]
+    acct = Attribution()
+    wal_dir = tempfile.mkdtemp(prefix="consensus-wal-")
+    makers = [lambda i=i: (ServingNode(genesis=genesis, keys=keys, validator_index=i,
+                                       n_validators=4), serve) for i in live]
+    nodes, servers = gossip_cluster(makers, timeouts=timeouts, wal_dir=wal_dir)
+    by_index = dict(zip(live, nodes))
+    try:
+        for i, node in by_index.items():
+            acct.attach(i, node, CONSENSUS_HEIGHTS)
+        if len({id(n.app._own_roots) for n in nodes}) != len(nodes):
+            raise AssertionError("two validators share an own-root memo")
+        # The txs at validator CONSENSUS_ENTRY; relay takes them to the
+        # others.  Tx i is key i % n's
+        # sequence i // n: a wave of one sequence reaches every pool before
+        # the next is sent, since the relay's sends run in parallel and a
+        # peer's CheckTx refuses a sequence that overtook its predecessor.
+        t0 = time.perf_counter()
+        wave = len(keys)
+        for lo in range(0, len(txs), wave):
+            codes = [by_index[CONSENSUS_ENTRY].broadcast(t).code for t in txs[lo:lo + wave]]
+            if any(codes):
+                raise AssertionError(f"broadcast: codes {[c for c in codes if c][:8]}")
+            want, deadline = min(lo + wave, len(txs)), time.monotonic() + 120
+            while any(len(n.mempool) < want for n in nodes):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"relay: pools {[len(n.mempool) for n in nodes]} of {want}")
+                time.sleep(0.02)
+        relay_s = time.perf_counter() - t0
+        log(f"[{card}] consensus: {len(txs)} txs broadcast to validator {CONSENSUS_ENTRY} and relayed to "
+            f"validators {live} in {relay_s:.3f} s; a k={APP_K} Prepare measured {prepare_s:.3f} s, "
+            f"round timeouts {timeouts}")
+
+        acct.armed = (CONSENSUS_VICTIM, CONSENSUS_FAULT_HEIGHT, CHECK_PARTS)
+        spec_before = dict(speculator().outcomes)
+        rows_before = len(traced().table(RoundJournal.TABLE))
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        with swapped(_build, "launch", acct.launch(_build.launch)), \
+                swapped(eds_mod, "_cached_pipeline", acct.pipelines(eds_mod._cached_pipeline)), \
+                profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t_run = time.perf_counter()
+            for n in nodes:
+                n.consensus_driver.start()
+            wait_heights(nodes, CONSENSUS_HEIGHTS, timeout_s=300)
+            # The commit hook (recheck, retention) ends after the height moves.
+            deadline = time.monotonic() + 60
+            while any((i, CONSENSUS_HEIGHTS) not in acct.commits for i in live):
+                if time.monotonic() > deadline:
+                    raise AssertionError("a validator's last commit did not end")
+                time.sleep(0.02)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t_run
+        launches = dict(_build.LAUNCHES)
+    finally:
+        for s in servers:
+            s.stop()
+        shutil.rmtree(wal_dir, ignore_errors=True)
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    spec = {k: speculator().outcomes[k] - spec_before[k] for k in spec_before}
+    rows = traced().table(RoundJournal.TABLE)[rows_before:]
+    ref = nodes[0]
+    heights = range(1, CONSENSUS_HEIGHTS + 1)
+    hashes = [ref.app.cms.app_hash_at(h) for h in heights]
+    rounds = {h: ref._commits[h].round for h in heights}
+
+    # Launches per validator and height, and what its extends and its
+    # retained forest account for.
+    per_validator: dict = {}
+    accounted: dict = {}
+    for i, node in by_index.items():
+        for h in heights:
+            data = node._blocks_by_height[h][0]
+            want: dict = {}
+            for part in EXTEND_PARTS + ("retain",):
+                for k in acct.extends.get((i, h, part), []):
+                    for name, n in extend_launches(k).items():
+                        want[name] = want.get(name, 0) + n
+            if data.txs:
+                for name, n in forest_launches(data.square_size).items():
+                    want[name] = want.get(name, 0) + n
+            per_validator.setdefault(i, {})[h] = acct.launches_at(i, h)
+            accounted[(i, h)] = want
+
+    # The per-height log, before any check, so that a failing run shows it.
+    starts = {0: 0.0}
+    for h in heights:
+        starts[h] = min(acct.commits[(i, h)][0] for i in live) - t_run
+    busy_all = sum(b - a for a, b in merged(spans))
+    for h in heights:
+        lo, hi = starts[h - 1] * 1e6, starts[h] * 1e6
+        busy = sum(max(0.0, min(b, hi) - max(a, lo)) for a, b in merged(spans))
+        data = ref._blocks_by_height[h][0]
+        parts = []
+        for i in live:
+            ms = {p: acct.ms.get((i, h, p), 0.0) for p in ("Prepare", "speculate", "Process",
+                                                            "Finalize", "Commit", "retain")}
+            prev = acct.commits.get((i, h - 1), (0.0, 0.0))[1] if h > 1 else 0.0
+            fsync = acct.commits[(i, h)][1] - prev
+            extends = {p: acct.extends[(i, h, p)] for p in EXTEND_PARTS + ("retain",)
+                       if (i, h, p) in acct.extends}
+            parts.append(f"v{i}: " + ", ".join(f"{p} {v:.3f}" for p, v in ms.items())
+                         + f", WAL fsync {fsync:.3f} ms; extends {extends}; launches "
+                         f"{per_validator[i][h]}")
+        journal = "; ".join(
+            f"r{r['round']} {r['result']} after {r['total_ms']:.0f} ms, prevote step at "
+            + ("-" if r["propose_ms"] is None else f"{r['propose_ms']:.0f}")
+            + f" ms, timeouts {r['timeouts']}" for r in rows if r["height"] == h)
+        log(f"[{card}] consensus height {h} round_journal rows (3 validators): {journal}")
+        log(f"[{card}] consensus height {h}: round {rounds[h]}, {len(data.txs)} txs, "
+            f"k={data.square_size}, app hash {hashes[h - 1].hex()[:16]}; wall "
+            f"{(starts[h] - starts[h - 1]) * 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
+            f"idle {100 - 100 * busy / max(hi - lo, 1e-9):.3f} %; " + "; ".join(parts))
+
+    # Agreement, the CPU replay and the Commit records.
+    def block(node, h):
+        data, time_ns, signers, evidence = node._blocks_by_height[h]
+        return data.txs, data.square_size, data.hash, time_ns, signers, evidence
+
+    for node in nodes[1:]:
+        if [node.app.cms.app_hash_at(h) for h in heights] != hashes or any(
+                block(node, h) != block(ref, h) for h in heights):
+            raise AssertionError("the live validators' blocks or app hashes differ")
+    t0 = time.perf_counter()
+    replay = TestNode(genesis, keys, device="cpu")
+    replayed = replay_heights(replay, ref, CONSENSUS_HEIGHTS, ServingNode._parse_evidence)
+    replay_s = time.perf_counter() - t0
+    if replayed != hashes:
+        raise AssertionError("a CPU TestNode replaying the committed blocks gives other app hashes")
+    for node in nodes:
+        for h in heights:
+            rec = node._commits[h]
+            if not verify_commit(node._valsets_by_height[h], node.chain_id, rec) or \
+                    rec.data_root != node._blocks_by_height[h][0].hash:
+                raise AssertionError(f"height {h}: a Commit record does not verify")
+    if rounds[CONSENSUS_DEAD_HEIGHT] < 1 or rounds[CONSENSUS_FAULT_HEIGHT] < 1:
+        raise AssertionError(f"rounds {rounds}: the dead proposer's height and the faulted "
+                             "height must decide in round >= 1")
+    for h in heights:
+        decided = [r for r in rows if r["height"] == h and r["result"] == "decided"]
+        if len(decided) < 2 or {r["round"] for r in decided} != {rounds[h]}:
+            raise AssertionError(f"height {h}: round_journal decided rows "
+                                 f"{[(r['round'], r['proposer'][:12]) for r in decided]}, "
+                                 f"commit round {rounds[h]}")
+    if spec["hit"] <= 0:
+        raise AssertionError(f"no speculation hit: {spec}")
+
+    # The injected fault: a DeviceFault out of the victim's handle, no verdict.
+    if len(acct.faults) != 1 or not acct.handled[CONSENSUS_VICTIM]:
+        raise AssertionError(f"fault {acct.faults}, handled {acct.handled}")
+    fault_prevotes = [v for v in acct.votes[CONSENSUS_VICTIM]
+                      if (v.height, v.round, v.vote_type) == (CONSENSUS_FAULT_HEIGHT, 0, PREVOTE)]
+    if any(not v.is_nil for v in fault_prevotes):
+        raise AssertionError("the faulted validator prevoted a block it never judged")
+
+    # The retained forests serve proofs against the committed data roots.
+    sampler = ProofSampler()
+    served = 0
+    for node in nodes:
+        for h in heights:
+            data = node._blocks_by_height[h][0]
+            if not data.txs:
+                continue
+            entry, tier = node.serve_cache.get(h)
+            if entry is None:
+                raise AssertionError(f"height {h} is not retained ({tier})")
+            n = 2 * data.square_size
+            coords = [(0, 0), (n - 1, n - 1), (data.square_size, 3 % n)]
+            for axis in ("row", "col"):
+                proofs = sampler.sample_batch(entry, coords, axis=axis)
+                if not all(p.verify(data.hash) for p in proofs):
+                    raise AssertionError(f"height {h}: a retained share proof does not verify")
+                served += len(proofs)
+
+    for (i, h), want in accounted.items():
+        got = per_validator[i][h]
+        if {k: v for k, v in got.items() if v} != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"validator {i} height {h}: launches {got}, want {want}")
+    log(f"[{card}] consensus: {CONSENSUS_HEIGHTS} heights in {run_s:.3f} s (rounds {rounds}); "
+        f"the live app hashes and BlockData agree and == a CPU TestNode's replay "
+        f"({replay_s:.3f} s); every Commit record verifies; the round_journal's decided rows "
+        f"name each height's round; speculation {spec}; the injected fault {acct.faults[0]} "
+        f"raised {acct.handled[CONSENSUS_VICTIM][0][:80]} out of validator "
+        f"{CONSENSUS_VICTIM}'s handle, its prevotes in that round "
+        f"{['nil' if v.is_nil else v.block_hash.hex()[:8] for v in fault_prevotes]}; "
+        f"{served} share proofs from the retained forests verify; each validator's launches "
+        f"per height == its extends' and its forest's; device busy {busy_all / 1e3:.3f} ms of "
+        f"the run, idle {100 - 100 * busy_all / (run_s * 1e6):.3f} %; launches in the run "
+        f"{launches}; the phase {time.perf_counter() - t_phase:.1f} s")
+    if any(launches[k] <= 0 for k in ("rs_dense", "sha256_leaf", "sha256")):
+        raise AssertionError(f"a kernel of the path was not launched: {launches}")
+    return {"validators": per_validator, "launches": launches}
+
+
+#: Round timeouts (base, per-round delta, seconds) of the port's gossip
+#: clusters on the CPU.  The plain SHA-256 makes an empty block's Prepare and
+#: Process take about 0.4 s each there, and the validators of one process
+#: take turns on the interpreter, so a non-proposer's verdict can come 2 s
+#: after its round opened: past rpc/gossip.FAST_TIMEOUTS' propose timeout.
+CPU_CLUSTER_TIMEOUTS = {"propose": (4.0, 0.5), "prevote": (1.0, 0.5), "precommit": (1.0, 0.5)}
+
+
+def gossip_cluster(makers, *, timeouts, topology=None, wal_dir=None,
+                   interval_s: float = 0.1) -> tuple[list, list]:
+    """Served gossip validators: `makers[i]()` gives validator i's
+    (ServingNode, serve function), so one cluster may mix the packages.
+    Each gets a ConsensusDriver with `timeouts` (and a WAL under `wal_dir`)
+    and an HTTP server on a free localhost port; peers are the full mesh or
+    `topology[i]`.  Returns (nodes, servers), the drivers not started."""
+    nodes, servers = [], []
+    for i, make in enumerate(makers):
+        node, serve = make()
+        wal = None if wal_dir is None else os.path.join(str(wal_dir), f"validator-{i}.wal")
+        node.enable_gossip_consensus(timeouts=timeouts, interval_s=interval_s, wal_path=wal)
+        servers.append(serve(node, port=0, block_interval_s=None))
+        nodes.append(node)
+    for i, node in enumerate(nodes):
+        peers = topology[i] if topology is not None else [j for j in range(len(nodes)) if j != i]
+        node.peer_urls = [servers[j].url for j in peers]
+    return nodes, servers
+
+
+def wait_heights(nodes, height: int, timeout_s: float) -> None:
+    """Until every node has committed `height`; TimeoutError after
+    `timeout_s`."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if all(n.app.height >= height for n in nodes):
+            return
+        time.sleep(0.02)
+    raise TimeoutError(f"heights {[n.app.height for n in nodes]} never all reached {height}")
+
+
+def replay_heights(node, source, upto: int, parse_evidence) -> list[bytes]:
+    """Commit `source`'s blocks up to `upto`, in order, on `node` (a TestNode
+    of either package): each height's BlockData, time, LastCommit signers
+    and evidence from the block store.  Returns `node`'s app hash after each
+    height it committed."""
+    out = []
+    for h in range(node.app.height + 1, upto + 1):
+        data, time_ns, signers, evidence = source._blocks_by_height[h]
+        node._commit_block_data(data, time_ns,
+                                last_commit_signers=None if signers is None else set(signers),
+                                evidence=parse_evidence(evidence))
+        out.append(node.app.cms.last_app_hash)
+    return out
 
 
 class StubApp:
@@ -3204,6 +3690,8 @@ def main() -> int:
     phase_done("chain")
     node_counts = phase_node(torch, card)
     phase_done("node")
+    consensus = phase_consensus(torch, card)
+    phase_done("consensus")
     query_counts = phase_querier(torch, card)
     phase_done("querier")
     bridge_counts = phase_bridge(torch, card)
@@ -3216,7 +3704,7 @@ def main() -> int:
         f"{app_counts['prepare']} and non-proposer Process {app_counts['process']}; per k={APP_K} "
         f"chain height's Prepare, Process, Finalize and Commit {chain_counts}; per k={APP_K} "
         f"node height {node_counts['height']}, of them its recheck's {node_counts['recheck']}; "
-        f"per proof "
+        f"per gossip height and validator {consensus['validators']}; per proof "
         f"query {query_counts}; in the bridge worker over its run {bridge_counts}")
 
     # Each kernel's launches on the k=512 path that runs it: the column

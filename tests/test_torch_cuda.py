@@ -788,3 +788,54 @@ def test_node_concurrent_admission_on_card(cuda):
     assert not any(t.is_alive() for t in threads)
     assert sorted(node.mempool.resident_txs()) == sorted(ref.resident_txs())
     assert node.mempool.size_bytes() == ref.size_bytes()
+
+
+def test_gossip_cluster_on_card_equals_cpu(cuda):
+    """3 card ServingNodes gossip a small chain through 3 heights (blob txs
+    relayed from a non-proposer, speculation on): their app hashes agree,
+    equal a TestNode(device="cpu") replaying the blocks, every Commit record
+    verifies, and each retained forest serves a share proof that verifies
+    against its data root."""
+    import chip_smoke
+    from celestia_app_tpu_torch.consensus import verify_commit
+    from celestia_app_tpu_torch.rpc.server import ServingNode, serve
+    from celestia_app_tpu_torch.serve import ProofSampler
+    from celestia_app_tpu_torch.testutil import TestNode, deterministic_genesis, funded_keys
+    from celestia_app_tpu_torch.testutil.blocks import block_txs
+    from celestia_app_tpu_torch.tx import tx_hash
+
+    keys = funded_keys(4)
+    genesis = deterministic_genesis(keys, n_validators=3)
+    makers = [lambda i=i: (ServingNode(genesis=genesis, keys=keys, validator_index=i,
+                                       n_validators=3), serve) for i in range(3)]
+    old = os.environ.get("CELESTIA_PIPE_SPECULATE")
+    os.environ["CELESTIA_PIPE_SPECULATE"] = "on"
+    nodes, servers = chip_smoke.gossip_cluster(makers, timeouts=chip_smoke.CPU_CLUSTER_TIMEOUTS)
+    try:
+        txs = block_txs(keys, genesis.chain_id, seed=11, sends=2, pfbs=4, blob_shares=(1, 6))
+        for t in txs:
+            assert nodes[1].broadcast(t).code == 0
+        for n in nodes:
+            n.consensus_driver.start()
+        chip_smoke.wait_heights(nodes, 3, timeout_s=180)
+        assert all(n.wait_tx(tx_hash(t), 60.0)[1] == 0 for n in nodes for t in txs)
+    finally:
+        for s in servers:
+            s.stop()
+        if old is None:
+            os.environ.pop("CELESTIA_PIPE_SPECULATE", None)
+        else:
+            os.environ["CELESTIA_PIPE_SPECULATE"] = old
+    upto = min(n.app.height for n in nodes)
+    hashes = [nodes[0].app.cms.app_hash_at(h) for h in range(1, upto + 1)]
+    assert all([n.app.cms.app_hash_at(h) for h in range(1, upto + 1)] == hashes for n in nodes)
+    replay = TestNode(genesis, keys, device="cpu")
+    assert chip_smoke.replay_heights(replay, nodes[0], upto, ServingNode._parse_evidence) == hashes
+    sampler = ProofSampler()
+    for h in range(1, upto + 1):
+        data = nodes[0]._blocks_by_height[h][0]
+        assert verify_commit(nodes[0]._valsets_by_height[h], nodes[0].chain_id, nodes[0]._commits[h])
+        if data.txs:
+            entry, _ = nodes[0].serve_cache.get(h)
+            proofs = sampler.sample_batch(entry, [(0, 0), (2 * data.square_size - 1, 1)])
+            assert all(p.verify(data.hash) for p in proofs)

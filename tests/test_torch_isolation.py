@@ -3,7 +3,8 @@ of `cryptography` (the card's machine lacks it; the port's keys are its own).
 
 Two checks: every module of celestia_app_tpu_torch (the multi-device plane,
 the ABCI App and its block execution's keepers and IBC stack, the mempool,
-the in-process node and its clients included) imported in a fresh
+the in-process node and its clients, the round machine, the vote WAL, the
+chaos spec and the gossip-driven serving node included) imported in a fresh
 interpreter leaves no `jax`,
 `celestia_app_tpu.*` or `cryptography` module in sys.modules, and no source
 of the port (nor chip_smoke.py) names one in an import statement, including
@@ -61,7 +62,10 @@ def test_importing_every_port_module_loads_no_jax():
                  "modules.ibc.handshake", "modules.ibc.ica", "mempool", "qos",
                  "trace.square_journal", "trace.slo", "trace.device_ledger",
                  "testutil.testnode", "testutil.network", "user.errors", "user.signer",
-                 "user.tx_client", "txsim.run"):
+                 "user.tx_client", "txsim.run", "consensus.machine", "consensus.wal",
+                 "trace.round_journal", "trace.flight_recorder", "chaos", "chaos.spec",
+                 "chaos.degrade", "rpc", "rpc.transport", "rpc.codec", "rpc.gossip",
+                 "rpc.server", "rpc.client"):
         assert f"celestia_app_tpu_torch.{name}" in result["imported"]
     assert result["forbidden"] == []
 
