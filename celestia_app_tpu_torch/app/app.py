@@ -31,7 +31,9 @@ Two deliberate differences from the JAX App, both because no fallback may
 hide the device:
   * ProcessProposal rejects a proposal on any fault of its content, as the
     reference's recover() does, but a fault of the device or a kernel
-    (device.DeviceFault) raises to the caller instead of voting False.
+    (device.DeviceFault) raises to the caller instead of voting False.  The
+    extend rides the degradation ladder (chaos/degrade.py) first, so a
+    fault that raises here is one that outlasted every rung.
   * speculate_proposal returns False only on a mismatch (a square that does
     not build, or whose size or emptiness differs from the proposal's); a
     fault of the speculative extend raises.

@@ -11,13 +11,16 @@ Activation, in precedence order:
 
 `uninstall()` drops a programmatic install.
 
-The port's copy of celestia_app_tpu/chaos/__init__.py, whole.  Of its seams
-the port wires the three its consensus plane calls: `gossip_send`
-(rpc/transport.py), `wal_torn_tail` (consensus/wal.py) and `rpc_handle`
-(rpc/server.py).  The device, mempool, proof and shard seams are here but no
-port module calls them yet, and chaos/degrade.py holds only `recoveries`:
-the degradation ladder and `reset_for_tests` come with the fault plane
-(ROADMAP, queue 1).
+The port's copy of celestia_app_tpu/chaos/__init__.py, whole, and
+chaos/degrade.py (the breaker, the ladder, `guarded_dispatch`,
+`reset_for_tests`) with it.  Wired seams: `device_dispatch` (da/eds,
+parallel/pipeline, da/repair through guarded_dispatch, and mid-panel in
+kernels/panel and kernels/panel_sharded), `device_upload`
+(parallel/pipeline), `extend_shard` (kernels/panel_sharded),
+`mempool_insert` (mempool.py), `gossip_send` (rpc/transport.py),
+`wal_torn_tail` (consensus/wal.py) and `rpc_handle` (rpc/server.py).  The
+proof seams (`proof_serve`, `proof_verify`, `proof_shard`) wait for the
+serving plane's fall-backs (ROADMAP, queue 1 item 4).
 """
 
 from __future__ import annotations

@@ -25,15 +25,27 @@ $CELESTIA_REPAIR_SWEEP pins the algorithm: "batched" (default, above) or
 "grouped", the per-group baseline that decodes whole lines until the full
 square is present; the two give the same bytes.
 
+Every sweep and the re-extension ride chaos/degrade.guarded_dispatch, so
+a repair-path fault steps the same ladder as every other extend: the
+batched sweep is the fused-family rung, the per-group sweep the staged rung
+and, in the port, also the host floor (the same sweep on the same card).
 The re-extension runs the lowering kernels/fused.pipeline_mode names, with
-the RS construction fixed at entry.  The port has no degradation ladder: a
-fault raises.  Survivors are authoritative: a set that is not one codeword
-is rejected (RootMismatch), as is a square whose roots differ from `dah`.
+the RS construction fixed at entry.  A retry of a sweep re-reads only
+survivor cells and rewrites only missing ones, so it is idempotent, and
+the availability mask advances only after a sweep succeeded.  Survivors are
+authoritative: a set that is not one codeword is rejected (RootMismatch),
+as is a square whose roots differ from `dah`; each rejection is an
+adversary detection (`celestia_da_detections_total{kind=
+"root_mismatch"}`) and fires the `root_mismatch` flight-recorder trigger.
+The healing loop the JAX package also feeds (serve/heal.note_detection)
+comes with the serving plane.  The recover matrices' bytes are the
+ledger owner `repair_recover_cache`.
 """
 
 from __future__ import annotations
 
 import os
+import weakref
 from functools import lru_cache
 
 import numpy as np
@@ -42,11 +54,11 @@ import torch
 from celestia_app_tpu_torch.constants import SHARE_SIZE
 from celestia_app_tpu_torch.convert import bits_tensor
 from celestia_app_tpu_torch.da.dah import DataAvailabilityHeader
-from celestia_app_tpu_torch.da.eds import ExtendedDataSquare, _cached_pipeline, _config
+from celestia_app_tpu_torch.da.eds import ExtendedDataSquare, _resolver
 from celestia_app_tpu_torch.device import resolve_device, upload
 from celestia_app_tpu_torch.gf.rs import active_construction, codec_for_width
-from celestia_app_tpu_torch.kernels.fused import pipeline_mode
 from celestia_app_tpu_torch.kernels.rs import encode_axis
+from celestia_app_tpu_torch.trace.device_ledger import register_owner as _register_owner
 
 
 class IrrecoverableSquare(ValueError):
@@ -60,6 +72,46 @@ class RootMismatch(ValueError):
 def repair_sweep_mode() -> str:
     """$CELESTIA_REPAIR_SWEEP: "batched" (default) or "grouped"."""
     return "grouped" if os.environ.get("CELESTIA_REPAIR_SWEEP", "") == "grouped" else "batched"
+
+
+def _detections():
+    """The adversary-detection counter of the JAX package's
+    chaos/adversary.detections (its name and help text)."""
+    from celestia_app_tpu_torch.trace.metrics import registry
+
+    return registry().counter(
+        "celestia_da_detections_total",
+        "data-availability attacks detected, by kind (root_mismatch: "
+        "repair rejected an inconsistent survivor set or a wrong DAH; "
+        "withheld / bad_proof: serve-plane sampler detections)",
+    )
+
+
+def _root_mismatch_detected(reason: str, height: int | None = None, **context) -> None:
+    """Every repair rejection is an adversary-detection event: tick the
+    detection counter and black-box the moment (the survivor set and the
+    DAH that disagreed are in the trace tables right now)."""
+    from celestia_app_tpu_torch.trace.flight_recorder import note_trigger
+
+    _detections().inc(kind="root_mismatch")
+    if height is not None:
+        context["height"] = height
+    note_trigger("root_mismatch", reason=reason, **context)
+
+
+#: Live recover-matrix tensors by cache key — a WEAK view over what the
+#: bounded lru caches below still hold, so the ownership ledger's figure
+#: falls when an entry evicts (trace/device_ledger.py).
+_RECOVER_CACHE_TENSORS: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
+
+
+def _recover_cache_bytes() -> int:
+    """Bytes held by the recover-matrix caches (the ownership-ledger
+    callback): the bit-expanded matrices still alive."""
+    return sum(int(t.numel()) * t.element_size() for t in list(_RECOVER_CACHE_TENSORS.values()))
+
+
+_register_owner("repair_recover_cache", _recover_cache_bytes)
 
 
 def _private(present: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -77,8 +129,9 @@ def _recover_bits_device(k: int, pattern: bytes, construction: str, device: torc
     codec = codec_for_width(k, construction)
     known_pos = np.nonzero(np.frombuffer(pattern, dtype=bool))[0][:k]
     R = codec.recover_matrix(known_pos)
-    return (bits_tensor(codec.field.expand_bit_matrix(R), device),
-            torch.from_numpy(known_pos.astype(np.int64)).to(device))
+    R_bits = bits_tensor(codec.field.expand_bit_matrix(R), device)
+    _RECOVER_CACHE_TENSORS[("full", k, pattern, construction, device)] = R_bits
+    return R_bits, torch.from_numpy(known_pos.astype(np.int64)).to(device)
 
 
 @lru_cache(maxsize=128)
@@ -92,8 +145,9 @@ def _recover_bits_missing(k: int, pattern: bytes, construction: str, device: tor
     known_pos = np.nonzero(mask)[0][:k]
     miss_pos = np.nonzero(~mask)[0]
     R = codec.recover_matrix(known_pos)
-    return (bits_tensor(codec.field.expand_bit_matrix(R[miss_pos]), device),
-            known_pos.astype(np.int64), miss_pos.astype(np.int64))
+    R_miss = bits_tensor(codec.field.expand_bit_matrix(R[miss_pos]), device)
+    _RECOVER_CACHE_TENSORS[("missing", k, pattern, construction, device)] = R_miss
+    return R_miss, known_pos.astype(np.int64), miss_pos.astype(np.int64)
 
 
 @lru_cache(maxsize=64)
@@ -155,9 +209,9 @@ def _batched_sweep(data: torch.Tensor, k: int, axis: int, construction: str,
 def _grouped_sweep(data: torch.Tensor, present_host: np.ndarray, k: int, axis: int,
                    construction: str, patterns: dict[bytes, list[int]]) -> torch.Tensor:
     """The per-group baseline: decode each group's lines whole with the
-    full-line recover matrix, write them back with the present cells kept,
-    and mark them present in `present_host` (celestia_app_tpu/da/
-    repair.py:283-353)."""
+    full-line recover matrix and write them back with the present cells
+    kept (celestia_app_tpu/da/repair.py:283-353).  `present_host` is read,
+    never written: the caller marks the lines once the sweep succeeded."""
     m = codec_for_width(k, construction).field.m
     present_dev = _private(present_host, data.device)
     for pat, ls in patterns.items():
@@ -168,8 +222,33 @@ def _grouped_sweep(data: torch.Tensor, present_host: np.ndarray, k: int, axis: i
         known = lines.index_select(1 - axis, known_idx)
         full = encode_axis(known, R_bits, m, contract_axis=1 - axis)
         data.index_copy_(axis, line_idx, torch.where(pm, lines, full))
-        _mark(present_host, axis, ls)
     return data
+
+
+def _sweep_for_mode(mode: str, k: int, axis: int, construction: str,
+                    patterns: dict[bytes, list[int]], present_host: np.ndarray):
+    """One sweep's callable on a ladder rung — the repair path's face of
+    guarded_dispatch's `resolve`: the batched sweep on the fused-family
+    rungs, the per-group sweep on staged and on the host floor.  Both
+    write the same bytes, and only into missing cells."""
+    if mode in ("fused", "fused_epi"):
+        sweep = _sweep_program("batched", k, construction)
+        return lambda data: sweep(data, k, axis, construction, patterns)
+    sweep = _sweep_program("grouped", k, construction)
+    return lambda data: sweep(data, present_host, k, axis, construction, patterns)
+
+
+@lru_cache(maxsize=None)
+def _sweep_program(kind: str, k: int, construction: str):
+    """The sweep of `kind` ("batched" or "grouped") registered with the
+    device ledger per (k, construction), under the JAX package's families
+    repair_batched_sweep and repair_sweep."""
+    from celestia_app_tpu_torch.trace.device_ledger import track
+
+    if kind == "batched":
+        return track(_batched_sweep, "repair_batched_sweep", k=k, construction=construction,
+                     mode="batched")
+    return track(_grouped_sweep, "repair_sweep", k=k, construction=construction, mode="staged")
 
 
 def _mark(present_host: np.ndarray, axis: int, lines) -> None:
@@ -197,10 +276,12 @@ def _solvable_groups(present_host: np.ndarray, k: int, axis: int, *,
 
 
 def _solve_batched(data, present_host: np.ndarray, k: int, construction: str):
-    """Crossword solve to ODS completion, one sweep per axis and round:
-    data-bearing lines first; a round without data progress falls back to
-    every solvable line, so a recovered parity line can unlock a data line.
-    Stops as soon as the ODS is whole (everything else re-derives from it)."""
+    """Crossword solve to ODS completion, one guarded sweep per axis and
+    round: data-bearing lines first; a round without data progress falls
+    back to every solvable line, so a recovered parity line can unlock a
+    data line.  Stops as soon as the ODS is whole (everything else
+    re-derives from it)."""
+    from celestia_app_tpu_torch.chaos.degrade import guarded_dispatch
 
     def sweep_round(data, *, data_only: bool):
         progressed = False
@@ -208,7 +289,9 @@ def _solve_batched(data, present_host: np.ndarray, k: int, construction: str):
             patterns = _solvable_groups(present_host, k, axis, data_only=data_only)
             if not patterns:
                 continue
-            data = _batched_sweep(data, k, axis, construction, patterns)
+            _, data = guarded_dispatch(
+                lambda m: _sweep_for_mode(m, k, axis, construction, patterns, present_host),
+                data)
             for lines in patterns.values():
                 _mark(present_host, axis, lines)
             progressed = True
@@ -226,13 +309,22 @@ def _solve_batched(data, present_host: np.ndarray, k: int, construction: str):
 
 def _solve_grouped(data, present_host: np.ndarray, k: int, construction: str):
     """$CELESTIA_REPAIR_SWEEP=grouped: alternate row and column sweeps until
-    the full square is present, one decode per erasure-pattern group."""
+    the full square is present, one decode per erasure-pattern group, each
+    sweep guarded (every rung runs the per-group sweep here: it is the
+    baseline the batched solve is held to)."""
+    from celestia_app_tpu_torch.chaos.degrade import guarded_dispatch
+
     while not present_host.all():
         progressed = False
         for axis in (0, 1):
             patterns = _solvable_groups(present_host, k, axis, data_only=False)
             if patterns:
-                data = _grouped_sweep(data, present_host, k, axis, construction, patterns)
+                sweep = _sweep_program("grouped", k, construction)
+                _, data = guarded_dispatch(
+                    lambda m: lambda d: sweep(d, present_host, k, axis, construction, patterns),
+                    data)
+                for lines in patterns.values():
+                    _mark(present_host, axis, lines)
                 progressed = True
         if not progressed:
             raise IrrecoverableSquare(f"stuck with {int((~present_host).sum())} missing shares")
@@ -240,14 +332,17 @@ def _solve_grouped(data, present_host: np.ndarray, k: int, construction: str):
 
 
 def repair(shares, present, dah: DataAvailabilityHeader | None = None, *,
-           device=None) -> ExtendedDataSquare:
+           height: int | None = None, device=None) -> ExtendedDataSquare:
     """Reconstruct the full EDS on `device` (default CUDA; raises without a
     card).
 
     shares: (2k, 2k, SHARE_SIZE) uint8, numpy or tensor, with arbitrary
     bytes at missing positions, never modified; present: (2k, 2k) bool
     availability mask.  If `dah` is given, the repaired square's roots must
-    match it (the Repair contract: a node verifies what it reconstructs)."""
+    match it (the Repair contract: a node verifies what it reconstructs).
+    `height`, when the caller knows it, stamps a rejection's trigger."""
+    from celestia_app_tpu_torch.chaos.degrade import guarded_dispatch
+
     dev = resolve_device(device)
     present_host = np.array(present, dtype=bool, copy=True)
     if isinstance(shares, torch.Tensor):
@@ -263,7 +358,6 @@ def repair(shares, present, dah: DataAvailabilityHeader | None = None, *,
     # Fixed at entry: a flip of the environment mid-repair must not decode
     # with one generator or lowering and verify with another.
     construction = active_construction()
-    mode = pipeline_mode()
 
     data = damaged.clone(memory_format=torch.contiguous_format)
     present_orig = _private(present_host, dev)
@@ -272,15 +366,18 @@ def repair(shares, present, dah: DataAvailabilityHeader | None = None, *,
     else:
         data = _solve_batched(data, present_host, k, construction)
 
-    # Re-extend the recovered ODS: parity and the roots for the DAH check.
-    run = _cached_pipeline(k, construction, _config(k, mode, dev), mode, dev)
-    eds, rr, cr, droot = run(data[:k, :k])
+    # Re-extend the recovered ODS: parity and the roots for the DAH check,
+    # on the process mode (repair wants the materializing full EDS, so no
+    # per-k panel seat) and the construction fixed at entry.
+    _, (eds, rr, cr, droot) = guarded_dispatch(_resolver(k, construction, dev), data[:k, :k])
     # Survivors are authoritative: the recomputed codeword must reproduce
     # every share present in the input (decided on the device; one bool
     # crosses to the host).
     if bool(((eds != damaged).any(dim=2) & present_orig).any()):
+        _root_mismatch_detected("inconsistent_survivors", height=height, k=k)
         raise RootMismatch("recovered shares are not a consistent codeword")
     out = ExtendedDataSquare(eds, rr, cr, droot, k)
     if dah is not None and not DataAvailabilityHeader.from_eds(out).equals(dah):
+        _root_mismatch_detected("dah_mismatch", height=height, k=k)
         raise RootMismatch("repaired square does not match the DAH")
     return out

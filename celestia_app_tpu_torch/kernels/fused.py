@@ -14,7 +14,10 @@ launch of the epilogue kernel, kernels/rs_xor.extend_leaf_digests),
 anything else -> "fused".  Per square size, $CELESTIA_PIPE_PANEL puts the
 panel-streamed lowering (kernels/panel.py) above these, and
 $CELESTIA_EXTEND_SHARDS its sharded twin (kernels/panel_sharded.py) above
-that: `pipeline_mode_for_k`.
+that: `pipeline_mode_for_k`.  Both are floored by the degradation ladder
+(chaos/degrade.py): a process whose dispatches keep failing is stepped
+down it by the circuit breaker, and because every caller routes through
+here, all of them move together.
 Every mode gives the same bytes.
 """
 
@@ -50,9 +53,12 @@ def env_base_mode() -> str:
 
 
 def pipeline_mode() -> str:
-    """The active extend + DAH lowering.  The port has no degradation
-    ladder yet, so this is the environment's choice as it stands."""
-    return env_base_mode()
+    """The active extend + DAH lowering: the environment's choice
+    (env_base_mode) floored by the degradation ladder, so a process whose
+    dispatches keep failing runs fused_epi -> fused -> staged -> host."""
+    from celestia_app_tpu_torch.chaos.degrade import effective_device_mode
+
+    return effective_device_mode(env_base_mode())
 
 
 def env_base_mode_for_k(k: int, device=None) -> str:
@@ -73,9 +79,12 @@ def env_base_mode_for_k(k: int, device=None) -> str:
 
 def pipeline_mode_for_k(k: int, device=None) -> str:
     """The active extend + DAH lowering for square size k: pipeline_mode()
-    with the per-k panel and sharded-panel seams above it.  No ladder, as
-    pipeline_mode."""
-    return env_base_mode_for_k(k, device)
+    with the per-k panel and sharded-panel seams above it, floored by the
+    degradation ladder (a faulting sharded step walks sharded_panel ->
+    panel -> the materializing base -> ... -> host)."""
+    from celestia_app_tpu_torch.chaos.degrade import effective_device_mode
+
+    return effective_device_mode(env_base_mode_for_k(k, device))
 
 
 def leaf_namespaces(eds: torch.Tensor, k: int, row0: int = 0, col0: int = 0) -> torch.Tensor:
@@ -284,6 +293,9 @@ def forest(k: int, device=None):
     """The forest builder of square size k on `device` (default CUDA;
     raises without a card): f(eds) moves `eds` there if it lies elsewhere;
     a row-sharded EDS is hashed block by block where it lies."""
+    from celestia_app_tpu_torch.trace.device_ledger import track
+    from celestia_app_tpu_torch.trace.journal import note_jit_build
+
     dev = resolve_device(device)
     run = forest_fn(k)
 
@@ -292,7 +304,8 @@ def forest(k: int, device=None):
             return forest_from_digests(*row_block_leaf_digests(eds, k, dev))
         return run(eds.to(dev))
 
-    return build
+    note_jit_build("forest")
+    return track(build, "forest", k=k)
 
 
 @lru_cache(maxsize=None)
@@ -305,6 +318,9 @@ def forest_sharded(k: int, mesh):
     block once, at admission; every gather reads the blocks where they
     lie."""
     from celestia_app_tpu_torch.parallel.mesh import RowSharded, padded_rows, place_rows
+
+    from celestia_app_tpu_torch.trace.device_ledger import track
+    from celestia_app_tpu_torch.trace.journal import note_jit_build
 
     n = 2 * k
     rows = n * (2 * n - 1)  # sum of n*w over widths n, n/2, ..., 1
@@ -322,4 +338,5 @@ def forest_sharded(k: int, mesh):
             flats.append(sharded)
         return tuple(flats)
 
-    return run
+    note_jit_build("forest_sharded")
+    return track(run, "forest_sharded", k=k, mode="sharded", shards=mesh.size)

@@ -39,8 +39,15 @@ Selection seam: $CELESTIA_PIPE_PANEL = "<rows>" | "auto" (default off).
 An integer streams every square in panels of that many ODS rows; "auto"
 engages only at k >= 512 with 64-row panels.  The mode ("panel", from
 kernels/fused.pipeline_mode_for_k) routes da/eds.compute, extend_shares,
-the speculative extend and parallel/pipeline.BlockPipeline.  The JAX
-degradation ladder is not ported: a faulting panel raises to the caller.
+the speculative extend and parallel/pipeline.BlockPipeline.  It is the
+"panel" rung of the degradation ladder (chaos/degrade.py): every panel's
+row phase, the parity-leaf (or FFT column-block) loop and the roots pass
+the chaos seam device.dispatch("panel") first, so an injected fault lands
+mid-panel, and a faulting panel (injected or real) walks the ladder to the
+materializing base.  `is_warm` is the journal's compile column (a
+configuration is warm once a full run of it completed), and each runner is
+registered with the device ledger (family panel_pipeline, the panel height
+in its batch column).
 """
 
 from __future__ import annotations
@@ -131,10 +138,15 @@ def _col_generator_slices(k: int, construction: str, bounds: tuple,
     G_bits[:, r0*m : r1*m].  Each is its own buffer with a 16-byte row
     stride and base (convert.bits_tensor), which a view into the whole
     generator lacks at m=8 for an odd r0 (TMA's alignment rule)."""
+    from celestia_app_tpu_torch.trace.device_ledger import note_owned_bytes
+
     codec = codec_for_width(k, construction)
     g_bits = codec.generator_bits()
     m = codec.field.m
-    return tuple(bits_tensor(g_bits[:, r0 * m: r1 * m], device) for r0, r1 in bounds)
+    slices = tuple(bits_tensor(g_bits[:, r0 * m: r1 * m], device) for r0, r1 in bounds)
+    note_owned_bytes("panel_generator_slices", (k, construction, bounds, str(device)),
+                     sum(int(s.numel()) * s.element_size() for s in slices))
+    return slices
 
 
 def _as_panels(x, k: int, bounds: tuple) -> list:
@@ -188,9 +200,35 @@ def panel_pipeline(k: int, construction: str | None = None, roots_only: bool = F
     return _panel_runner(k, construction, roots_only, rows, encode_core(k, dev), dev)
 
 
+#: Resolved configurations (k, construction, rows, core, device) whose
+#: runner completed one full run this process — the journal's compile
+#: hit/miss signal for panel mode (da/eds.pipeline_cache_state).
+_PANEL_WARM: set[tuple] = set()
+
+
+def is_warm(k: int, construction: str | None = None, device=None) -> bool:
+    """Whether the panel runner the seam resolves for k on `device`
+    (default CUDA) has completed a run this process."""
+    dev = resolve_device(device)
+    construction = construction or active_construction()
+    return (k, construction, panel_rows(k) or k, encode_core(k, dev), dev) in _PANEL_WARM
+
+
+def _track(fn, k: int, construction: str, rows: int):
+    """Register one panel runner with the device ledger (family
+    panel_pipeline; the panel height rides the batch column)."""
+    from celestia_app_tpu_torch.trace.device_ledger import track
+    from celestia_app_tpu_torch.trace.journal import note_jit_build
+
+    note_jit_build("panel_pipeline")
+    return track(fn, "panel_pipeline", k=k, construction=construction, mode="panel", batch=rows)
+
+
 @lru_cache(maxsize=None)
 def _panel_runner(k: int, construction: str, roots_only: bool, rows: int, core: tuple,
                   dev: torch.device):
+    from celestia_app_tpu_torch import chaos
+
     bounds = panel_bounds(k, rows)
     use_fft = core[0] == "fft"
     m = codec_for_width(k, construction).field.m
@@ -217,6 +255,7 @@ def _panel_runner(k: int, construction: str, roots_only: bool, rows: int, core: 
         left = (torch.arange(n, device=dev) < k)[None, :, None]
         ns_slabs, top_hashes = [], []
         for i, (r0, r1) in enumerate(bounds):
+            chaos.device_dispatch("panel")
             panel = _to_device(panels[i], dev)
             ext = (top[r0:r1] if top is not None else
                    torch.empty((r1 - r0, n, SHARE_SIZE), dtype=torch.uint8, device=dev))
@@ -233,6 +272,7 @@ def _panel_runner(k: int, construction: str, roots_only: bool, rows: int, core: 
         if use_fft:
             for c0 in range(0, n, cwidth):
                 c1 = min(c0 + cwidth, n)
+                chaos.device_dispatch("panel")
                 blk = col_block(top[:, c0:c1])  # (k, c, S)
                 bot_hashes.append(leaf_digests(parity_namespaces((k, c1 - c0), dev), blk)[2])
                 if eds is not None:
@@ -240,11 +280,14 @@ def _panel_runner(k: int, construction: str, roots_only: bool, rows: int, core: 
             bot = torch.cat(bot_hashes, dim=1)
         else:
             for r0, r1 in bounds:
+                chaos.device_dispatch("panel")
                 bot_hashes.append(
                     leaf_digests(parity_namespaces((r1 - r0, n), dev), acc[r0:r1])[2])
             bot = torch.cat(bot_hashes, dim=0)
         ns = torch.cat([*ns_slabs, parity_namespaces((k, n), dev)], dim=0)
+        chaos.device_dispatch("panel")
         roots = roots_from_digests(ns, ns, torch.cat([*top_hashes, bot], dim=0))
+        _PANEL_WARM.add((k, construction, rows, core, dev))
         return roots if roots_only else (eds, *roots)
 
-    return run
+    return _track(run, k, construction, rows)

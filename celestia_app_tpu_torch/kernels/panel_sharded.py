@@ -37,8 +37,14 @@ every shard at once, never padding):
     (i+1)*slab)); nothing reassembles it on one device.  The roots-only
     twin never holds the top half beyond one step (dense leg).
 
-The JAX ladder rungs and chaos seams are not ported: a sharded fault raises
-to the caller.
+It is the "sharded_panel" rung of the degradation ladder
+(chaos/degrade.py): before the accumulators, per step, before each step's
+column contraction (or the FFT leg's exchange) and before the roots, the
+runner passes the chaos seams device.dispatch("sharded_panel") and
+device.extend_shard, so an injected fault lands mid-schedule, and a
+faulting step walks the ladder to the single-card panel runner.
+`is_sharded_warm` is the journal's compile column, and each runner is
+registered with the device ledger (family sharded_panel_pipeline).
 """
 
 from __future__ import annotations
@@ -170,6 +176,8 @@ def _owner_generator_slices(k: int, construction: str, devices: tuple, bounds: t
     b's parity rows.  Each its own 16-byte-strided buffer (bits_tensor,
     TMA's rule).  Across steps and owners they are the generator's bytes
     once."""
+    from celestia_app_tpu_torch.trace.device_ledger import note_owned_bytes
+
     codec = codec_for_width(k, construction)
     g_bits = codec.generator_bits()
     m = codec.field.m
@@ -182,7 +190,37 @@ def _owner_generator_slices(k: int, construction: str, devices: tuple, bounds: t
         out.append(tuple(
             bits_tensor(g_bits[b * slab * m:(b + 1) * slab * m][:, cols], devices[b])
             for b in range(n)))
+    note_owned_bytes("sharded_generator_slices", (k, construction, tuple(map(str, devices)),
+                                                  bounds),
+                     sum(int(t.numel()) * t.element_size() for step in out for t in step))
     return tuple(out)
+
+
+#: Resolved configurations (k, construction, mesh, rows, core) whose runner
+#: completed one full run this process — the compile column of the sharded
+#: rung (da/eds.pipeline_cache_state), keyed like kernels/panel._PANEL_WARM
+#: plus the mesh.
+_SHARDED_WARM: set[tuple] = set()
+
+
+def is_sharded_warm(k: int, construction: str | None = None, device=None) -> bool:
+    """Whether the sharded runner the seams resolve for k on `device`'s
+    extend mesh (default CUDA) has completed a run this process."""
+    construction = construction or active_construction()
+    dev = resolve_device(device)
+    shards = shards_for_k(k, dev)
+    if not shards:
+        return False
+    mesh = extend_mesh(shards, dev)
+    rows = min(panel_rows(k) or k // shards, k // shards)
+    return (k, construction, mesh, rows, encode_core(k, mesh.devices[0])) in _SHARDED_WARM
+
+
+def _seams() -> None:
+    from celestia_app_tpu_torch import chaos
+
+    chaos.device_dispatch("sharded_panel")
+    chaos.extend_shard()
 
 
 def sharded_panel_pipeline(k: int, construction: str | None = None, roots_only: bool = False,
@@ -241,15 +279,18 @@ def _sharded_runner(k: int, construction: str, roots_only: bool, mesh: Mesh, row
             raise ValueError(f"bad ODS shape {tuple(x.shape)} for k={k}")
         mesh.enter()
         try:
-            return _run(x)
+            out = _run(x)
         except BaseException:
             # Nothing of a failed run may still read the caller's input.
             mesh.synchronize()
             raise
+        _SHARDED_WARM.add((k, construction, mesh, rows, core))
+        return out
 
     def _run(x):
         tops, bottoms, top_ns, top_hashes = [], [], [[] for _ in range(n)], [[] for _ in range(n)]
         blocks = []
+        _seams()
         for i, dev in enumerate(mesh.devices):
             with mesh.on(i):
                 block = None if roots_only else torch.empty((2 * slab, w, SHARE_SIZE),
@@ -264,6 +305,7 @@ def _sharded_runner(k: int, construction: str, roots_only: bool, mesh: Mesh, row
                     bottoms.append(block[slab:].zero_() if block is not None else torch.zeros(
                         (slab, w, SHARE_SIZE), dtype=torch.uint8, device=dev))
         for j, (r0, r1) in enumerate(bounds):
+            _seams()
             exts = []
             for i, dev in enumerate(mesh.devices):
                 with mesh.on(i):
@@ -277,6 +319,7 @@ def _sharded_runner(k: int, construction: str, roots_only: bool, mesh: Mesh, row
                     top_hashes[i].append(leaf_digests(ns, ext)[2])
                     exts.append(ext)
             if not use_fft:
+                _seams()
                 # The step's all_gather, one owner at a time, so that one
                 # gathered (n*h, 2k, S) buffer is alive at once on the host's
                 # side (each owner's stream reuses its own memory).
@@ -288,6 +331,7 @@ def _sharded_runner(k: int, construction: str, roots_only: bool, mesh: Mesh, row
                     del panels
             del exts
         if use_fft:
+            _seams()
             cols = all_to_all(mesh, tops, split_dim=1, concat_dim=0)  # (k, 2k/n, S) each
             parity_cols = []
             for j, dev in enumerate(mesh.devices):
@@ -300,6 +344,7 @@ def _sharded_runner(k: int, construction: str, roots_only: bool, mesh: Mesh, row
             bottoms = all_to_all(mesh, parity_cols, split_dim=0, concat_dim=1,
                                  out=None if roots_only else bottoms)
             del parity_cols
+        _seams()
         row_parts, col_nodes = [], []
         for i, dev in enumerate(mesh.devices):
             with mesh.on(i):
@@ -335,4 +380,9 @@ def _sharded_runner(k: int, construction: str, roots_only: bool, mesh: Mesh, row
         mesh.leave((eds, *roots))
         return (eds, *roots)
 
-    return run
+    from celestia_app_tpu_torch.trace.device_ledger import track
+    from celestia_app_tpu_torch.trace.journal import note_jit_build
+
+    note_jit_build("sharded_panel_pipeline")
+    return track(run, "sharded_panel_pipeline", k=k, construction=construction,
+                 mode="sharded_panel", batch=rows, shards=n)

@@ -98,9 +98,17 @@ def encode_axis_xor(data: torch.Tensor, G_words: torch.Tensor, m: int,
 
 @lru_cache(maxsize=None)
 def _codec_tensors(k: int, construction: str, device: torch.device):
+    """(m, {"G_bits", "G_words"}) of one codec on `device`, resident for
+    the process: the device ledger's owner `codec_tensors` (the JAX package
+    bakes its generators into each compiled program instead)."""
+    from celestia_app_tpu_torch.trace.device_ledger import note_owned_bytes
+
     codec = codec_for_width(k, construction)
     m = codec.field.m
-    return m, codec_tensors(codec.generator_bits(), m, device)
+    tensors = codec_tensors(codec.generator_bits(), m, device)
+    note_owned_bytes("codec_tensors", (k, construction, str(device)),
+                     sum(int(t.untyped_storage().nbytes()) for t in tensors.values()))
+    return m, tensors
 
 
 def encode_fn(k: int, construction: str | None = None, device=None):

@@ -54,11 +54,9 @@ go through the top-N cardinality cap (trace/square_journal.py) once, at
 admission.
 
 The port's copy of celestia_app_tpu/mempool.py: the same admissions,
-evictions, reaps (pure priority and DRR) and gauges on the same input, with
-one deliberate difference.  The JAX pool's chaos seam (`chaos.mempool_insert`,
-which drops an admission per shard under `$CELESTIA_CHAOS`) is left out
-until the port has the fault plane (ROADMAP, queue 1 item 3); an insert is
-never dropped here.
+evictions, reaps (pure priority and DRR), gauges and chaos seam
+(`chaos.mempool_insert`, which drops an admission per shard under
+`$CELESTIA_CHAOS`, each shard on its own seeded stream) on the same input.
 """
 
 from __future__ import annotations
@@ -429,9 +427,9 @@ class PriorityMempool:
         new truth, not stay stale)."""
         try:
             verdict = (
-                self._insert_global(tx, priority, height, ctx, ns)
+                self._insert_global(tx, priority, height, ctx, ns, sp)
                 if self.shards <= 0
-                else self._insert_sharded(tx, priority, height, ctx, ns)
+                else self._insert_sharded(tx, priority, height, ctx, ns, sp)
             )
         except Exception:
             sp["result"] = "throttled"
@@ -443,12 +441,17 @@ class PriorityMempool:
             self._refresh_gauges()
         return ok
 
-    def _insert_global(self, tx, priority, height, ctx, ns):
+    def _insert_global(self, tx, priority, height, ctx, ns, sp):
         """The frozen baseline rung: ONE lock held across the whole
         admission — key hash, namespace parse, QoS, map mutation — which
         is exactly the serialization the pre-shard node paid (and the
         rung the JAX package's BENCH_MODE=mempool measures the sharded path
         against)."""
+        from celestia_app_tpu_torch import chaos
+
+        if chaos.mempool_insert(shard=0):
+            sp["result"] = "chaos_dropped"
+            return False, None
         shard = self._shards[0]
         with shard.lock:
             key, label = self._resolve(tx, ctx, ns)
@@ -464,15 +467,23 @@ class PriorityMempool:
             ok = self._admit(shard, key, tx, priority, height, ctx, label)
         return ok, ((label, 0) if ok and not pressure else None)
 
-    def _insert_sharded(self, tx, priority, height, ctx, ns):
+    def _insert_sharded(self, tx, priority, height, ctx, ns, sp):
         """The sharded admission path: the per-tx sha256 + namespace
         parse run OUTSIDE any lock (that work dominates an admission and
         is what the old global lock serialized), then only the owning
         namespace shard's lock is taken.  Pool-pressure evictions — the
         rare cross-shard decision — fall to the all-locks path, where
         the decision logic is the same as the baseline's."""
+        from celestia_app_tpu_torch import chaos
+
         key, label = self._resolve(tx, ctx, ns)
         idx = self._shard_index(label)
+        # The chaos seam fires per-shard with its own seeded RNG stream
+        # (chaos/spec.py): injection sets stay interleaving-independent
+        # even when admissions race across shards.
+        if chaos.mempool_insert(shard=idx):
+            sp["result"] = "chaos_dropped"
+            return False, None
         # Oversize and already-resident rejections BEFORE the QoS gate
         # (the key-map read is GIL-atomic): gossip re-offers of resident
         # txs are protocol traffic and must not drain the tenant's token

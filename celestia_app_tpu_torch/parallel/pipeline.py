@@ -44,10 +44,26 @@ Every drained block writes one "stream" row to the block journal
 (trace/journal.py) with the JAX field names (`panels` on panel rows,
 `shards` on sharded ones).
 
-Not ported (the node integration will bring them, ROADMAP queue 1): the
-chaos seams and the upload retry, `guarded_dispatch` with its batched ->
-unbatched fall-back, the flight-recorder trigger and the gauges.  A fault in
-the port raises out of `drain()` (and `submit()`), and nothing falls back.
+Faults, as in the JAX package.  Every dispatch rides
+chaos/degrade.guarded_dispatch: a fault is retried within its rung, a
+streak of them steps the process-wide ladder, and `_resolve_pipe` swaps the
+dispatcher's lowering when the ladder moves mid-stream (journal rows carry
+the rung each square ran on).  A batched fault falls to one guarded
+dispatch per square, each re-staged from the ring's host slot
+(`celestia_recoveries_total{outcome="unbatched"}`).  The upload retries
+`_UPLOAD_RETRIES` times behind the chaos seam device.upload.  CUDA reports
+an execution fault at a later sync: here the drain's wait on the batch's
+done event, where `note_async_device_failure` feeds it to the breaker
+before it raises.  A stage that dies writes a `worker_death` flight bundle
+after its death sentinel is delivered; `submit()` and `drain()` raise with
+the cause chained.  Past the ladder's floor the fault raises out of
+`drain()` (and `submit()`); no rung runs on the CPU.
+
+Gauges (the JAX names): `celestia_pipeline_queue_depth{queue}`,
+`celestia_pipeline_ring_occupancy{state}`,
+`celestia_pipeline_batch_size{k}` (one observation per dispatch),
+`celestia_pipeline_close_leaked_total{stage}`; the live rings' staging
+bytes are the ledger owner `pipeline_buffer_ring`.
 
 On `device="cpu"`, which the caller asks for, the slots are plain host
 memory and there are no streams or events.
@@ -61,25 +77,42 @@ import queue
 import sys
 import threading
 import time
+import weakref
 from dataclasses import dataclass, field
 
 import torch
 
+from celestia_app_tpu_torch import chaos
+from celestia_app_tpu_torch.chaos.degrade import (
+    guarded_dispatch,
+    note_async_device_failure,
+    recoveries,
+)
 from celestia_app_tpu_torch.constants import SHARE_SIZE
 from celestia_app_tpu_torch.da.eds import (
     ExtendedDataSquare,
     _check_square,
     _panel_fields,
     _pipeline_and_state,
-    pipeline_batched,
+    _staged_input,
+    batched_pipeline_for_mode,
 )
 from celestia_app_tpu_torch.device import _host_tensor, hand_over, resolve_device, upload
 from celestia_app_tpu_torch.gf.rs import active_construction
-from celestia_app_tpu_torch.kernels.fused import pipeline_mode_for_k
+from celestia_app_tpu_torch.kernels.fused import (
+    env_base_mode_for_k,
+    pipeline_mode,
+    pipeline_mode_for_k,
+)
 from celestia_app_tpu_torch.kernels.panel import panel_rows
 from celestia_app_tpu_torch.trace import journal
+from celestia_app_tpu_torch.trace.device_ledger import register_owner
 
 _SENTINEL = object()
+
+#: Transient-upload retry budget (chaos upload_fail, a flaky copy): attempts
+#: per batch after the first before the pipeline declares the feeder dead.
+_UPLOAD_RETRIES = 2
 
 #: Poll interval of the deadline-aware queue waits: every bounded put/get
 #: wakes this often to check worker liveness, so a dead stage is reported
@@ -88,18 +121,35 @@ _POLL_S = 0.1
 #: close()'s inactivity window before a still-alive worker is declared
 #: wedged: long enough for a first launch that builds the kernels.
 _CLOSE_STALL_S = 60.0
-#: The coalescing ceiling $CELESTIA_PIPE_BATCH=auto may resolve to.
+#: The coalescing ceiling $CELESTIA_PIPE_BATCH=auto resolves to when the
+#: square journal's occupancy signal says traffic is producing small,
+#: under-filled squares (the regime where launch overhead dominates).
 _AUTO_BATCH = 4
+#: Occupancy below which `auto` batching engages: a square less than half
+#: full at the current k means the proposer is cutting small squares.
+_AUTO_OCCUPANCY = 0.5
 
 
 def env_batch() -> int:
     """$CELESTIA_PIPE_BATCH: how many queued same-k squares one dispatch may
     coalesce.  ""/unset/"0"/"1"/"off" = 1; an integer N > 1 = up to N;
-    "auto" follows the square journal's occupancy signal in the JAX package,
-    which the port does not have yet, so it resolves as the JAX function
-    does with no signal: 1."""
+    "auto" = consult the square journal's occupancy signal
+    (trace/square_journal.last_square): when the last built square ran
+    under 50 % occupancy (an empty square very much included), traffic is
+    producing many small squares and the dispatcher batches up to 4,
+    otherwise (or with no square built yet) it stays unbatched."""
     val = os.environ.get("CELESTIA_PIPE_BATCH", "").strip().lower()
-    if val in ("", "0", "1", "off", "auto"):
+    if val in ("", "0", "1", "off"):
+        return 1
+    if val == "auto":
+        from celestia_app_tpu_torch.trace.square_journal import last_square
+
+        last = last_square()
+        if last is None:
+            return 1  # no traffic signal yet: stay unbatched
+        occupancy = last.get("occupancy")
+        if occupancy is not None and occupancy < _AUTO_OCCUPANCY:
+            return _AUTO_BATCH
         return 1
     try:
         return max(1, int(val))
@@ -112,6 +162,55 @@ def env_batch_cap() -> int:
     later batch up to _AUTO_BATCH, anything else is env_batch()."""
     val = os.environ.get("CELESTIA_PIPE_BATCH", "").strip().lower()
     return _AUTO_BATCH if val == "auto" else env_batch()
+
+
+def _queue_depth_gauge():
+    from celestia_app_tpu_torch.trace.metrics import registry
+
+    return registry().gauge(
+        "celestia_pipeline_queue_depth",
+        "blocks resident per block-pipeline hand-off queue",
+    )
+
+
+def _close_leak_counter():
+    from celestia_app_tpu_torch.trace.metrics import registry
+
+    return registry().counter(
+        "celestia_pipeline_close_leaked_total",
+        "pipeline worker threads still alive after close()'s join timeout",
+    )
+
+
+def _ring_occupancy_gauge():
+    from celestia_app_tpu_torch.trace.metrics import registry
+
+    return registry().gauge(
+        "celestia_pipeline_ring_occupancy",
+        "buffer-ring slots by state (free / in_use / pinned-for-swap)",
+    )
+
+
+def _batch_size_histogram():
+    from celestia_app_tpu_torch.trace.metrics import registry
+
+    return registry().histogram(
+        "celestia_pipeline_batch_size",
+        "same-k squares coalesced into one pipeline dispatch",
+        buckets=(1.0, 2.0, 4.0, 8.0, 16.0, 32.0),
+    )
+
+
+def _rings_owned_bytes() -> int:
+    """Staging bytes held by every live buffer ring's CURRENT slots.  A
+    pinned slot swapped for a fresh buffer stops counting here: its old
+    bytes live exactly as long as the retained square."""
+    return sum(int(h.numel()) for ring in list(_ALL_RINGS) for h in ring._hosts)
+
+
+_ALL_RINGS: "weakref.WeakSet[_BufferRing]" = weakref.WeakSet()
+
+register_owner("pipeline_buffer_ring", _rings_owned_bytes)
 
 
 class _BufferRing:
@@ -144,6 +243,7 @@ class _BufferRing:
         self._gen = [0] * slots  # bumped per acquire: late-pin detection
         self.swaps = 0  # pinned slots replaced with a fresh buffer
         self.late_pins = 0  # pins that arrived after the slot was reused
+        _ALL_RINGS.add(self)
 
     def _fresh(self) -> torch.Tensor:
         return torch.empty((self.batch, self.k, self.k, SHARE_SIZE), dtype=torch.uint8,
@@ -235,16 +335,17 @@ class BlockPipeline:
         self._panel = panel_rows(k)
         if self._panel:
             self.batch = 1
-        # Bound to the construction, RS core and lowering active at
-        # creation: every block it streams uses them.
+        # Bound to the construction and RS core active at creation: every
+        # block it streams uses them.  The lowering starts as the one
+        # active at creation and follows the degradation ladder from there
+        # (_resolve_pipe).
         self.construction = active_construction()
         self._mode = pipeline_mode_for_k(k, self.device)
-        self._journal_extras = _panel_fields(self._mode, k, self.device)
-        single, self._compile_state = _pipeline_and_state(k, self.construction, self._mode,
-                                                          self.device)
-        self._pipes = {1: single}
+        self._pipe_mode = self._mode
+        self._pipe, self._compile_state = _pipeline_and_state(k, self.construction, self._mode,
+                                                              self.device)
         for n in range(2, self.batch + 1):
-            self._pipes[n] = pipeline_batched(k, n, self.construction, self.device)
+            batched_pipeline_for_mode(pipeline_mode(), k, n, self.construction, self.device)
         cuda = self.device.type == "cuda"
         if cuda:
             self._copy_stream = torch.cuda.Stream(self.device)
@@ -284,7 +385,7 @@ class BlockPipeline:
             if self._error is None:
                 self._error = e
             self._force_sentinel(self._staged)
-            raise
+            self._note_death("uploader", e)
 
     def _coalesce(self, first) -> tuple[list, bool]:
         """`first` plus up to batch-1 more queued tasks, without waiting:
@@ -330,19 +431,32 @@ class BlockPipeline:
                         self._staged.put(_SENTINEL)
                         return
                     continue
-                if self._panel:
-                    # Staged into the pinned slot only: the runner uploads
-                    # it one panel at a time on the compute stream.
-                    x, uploaded = self._ring.host(sid), None
-                    x[0].copy_(_host_tensor(items[0][0]))
-                else:
-                    x, uploaded = upload([ods for ods, _tag, _t in items], self.device,
-                                         pinned=self._ring.host(sid), stream=self._copy_stream,
-                                         consumer=self._compute_stream)
+                for attempt in range(_UPLOAD_RETRIES + 1):
+                    try:
+                        chaos.device_upload()  # injected stall or failure
+                        if self._panel:
+                            # Staged into the pinned slot only: the runner
+                            # uploads it one panel at a time on the compute
+                            # stream.
+                            x, uploaded = self._ring.host(sid), None
+                            x[0].copy_(_host_tensor(items[0][0]))
+                        else:
+                            x, uploaded = upload([ods for ods, _tag, _t in items], self.device,
+                                                 pinned=self._ring.host(sid),
+                                                 stream=self._copy_stream,
+                                                 consumer=self._compute_stream)
+                        break
+                    except Exception:  # chaos-ok: bounded upload retry
+                        if attempt == _UPLOAD_RETRIES:
+                            raise
+                        time.sleep(0.002 * (2 ** attempt))
+                if attempt:
+                    recoveries().inc(seam="device.upload", outcome="retried")
                 t1 = time.perf_counter()
             except Exception as e:
                 self._error = e
                 self._staged.put(_SENTINEL)
+                self._note_death("uploader", e)
                 failed = True
                 continue
             meta = {
@@ -366,7 +480,17 @@ class BlockPipeline:
             if self._error is None:
                 self._error = e
             self._force_sentinel(self._done)
-            raise
+            self._note_death("dispatcher", e)
+
+    def _note_death(self, stage: str, err: BaseException) -> None:
+        """Black-box a pipeline-fatal stage failure: the journal rows around
+        the death are the forensic record.  Always called after the death
+        sentinel is delivered, so a consumer blocked on the queue does not
+        wait behind forensics.  note_trigger rate-limits and never raises."""
+        from celestia_app_tpu_torch.trace.flight_recorder import note_trigger
+
+        note_trigger("worker_death", stage=stage, k=self.k, depth=self.depth,
+                     mode=self._mode, error=f"{type(err).__name__}: {err}"[:300])
 
     @staticmethod
     def _force_sentinel(q: queue.Queue) -> None:
@@ -391,6 +515,43 @@ class BlockPipeline:
         elif self._panel and self._compute_stream is not None:
             self._compute_stream.synchronize()
         self._ring.release(sid)
+
+    def _resolve_pipe(self, mode: str):
+        """The pipeline of `mode` fed its input as that lowering takes it,
+        swapping lowerings when the degradation ladder moved mid-stream
+        (journal rows from then on carry the mode blocks actually ran).  A
+        pipeline built here uploads its tables on the compute stream, which
+        is synchronized once so no other stream reads them early."""
+        if mode != self._pipe_mode:
+            self._pipe = _pipeline_and_state(self.k, self.construction, mode, self.device)[0]
+            self._pipe_mode = self._mode = mode
+            if self._compute_stream is not None:
+                self._compute_stream.synchronize()
+        pipe, dev = self._pipe, self.device
+        return lambda x: pipe(_staged_input(x, mode, dev))
+
+    def _dispatch_batched(self, x, sid: int, n: int) -> list[tuple[str, tuple]]:
+        """One batched dispatch for n coalesced squares; any batched fault
+        falls to n unbatched dispatches through the normal guarded ladder,
+        each square re-staged from the ring's host slot, so a fault in the
+        batching costs latency, never a block.  Returns [(mode, (eds, rr,
+        cr, droot)), ...] per square, in order, each square's EDS in
+        storage of its own (a retained square keeps only itself alive)."""
+        mode = pipeline_mode()
+        try:
+            chaos.device_dispatch(mode)
+            out = batched_pipeline_for_mode(mode, self.k, n, self.construction, self.device)(x)
+            # The batched lowering of fused_epi is the fused body.
+            ran = "fused" if mode == "fused_epi" else mode
+            return [(ran, (out[0][b].clone(), out[1][b], out[2][b], out[3][b]))
+                    for b in range(n)]
+        except Exception:  # chaos-ok: batched fault -> unbatched rung
+            recoveries().inc(seam="device.dispatch", outcome="unbatched")
+            host = self._ring.host(sid)
+            return [guarded_dispatch(self._resolve_pipe,
+                                     host[b].to(self.device, non_blocking=True),
+                                     k=self.k, device=self.device)
+                    for b in range(n)]
 
     def _dispatch_loop(self) -> None:
         # The current stream is per thread: this thread's launches (every
@@ -417,46 +578,60 @@ class BlockPipeline:
                     done = None
                     if uploaded is not None:
                         self._compute_stream.wait_event(uploaded)
-                    out = self._pipes[n](x[0] if n == 1 else x)
                     if n == 1:
-                        per_square = [out]
+                        per_square = [guarded_dispatch(self._resolve_pipe, x[0], k=self.k,
+                                                       device=self.device)]
                     else:
-                        # Each square its own EDS storage, so a retained
-                        # square does not keep its whole batch alive.
-                        per_square = [(out[0][b].clone(), out[1][b], out[2][b], out[3][b])
-                                      for b in range(n)]
+                        per_square = self._dispatch_batched(x, sid, n)
                     if self._compute_stream is not None:
                         done = torch.cuda.Event()
                         done.record(self._compute_stream)
-                    del x, out  # before a put that may block on a full _done
+                    del x  # before a put that may block on a full _done
                     meta["dispatch_ms"] = (time.perf_counter() - t1) * 1e3
                     meta["dispatch_starve_ms"] = starve_ms
                     meta["batch_size"] = n
-                    meta.update(self._journal_extras)
+                    # One owner for the panel and sharded extras
+                    # (da/eds._panel_fields), so this row cannot disagree
+                    # with compute's for the same dispatch.
+                    meta.update(_panel_fields(per_square[0][0], self.k, self.device))
+                    _batch_size_histogram().observe(float(n), k=str(self.k))
                 except Exception as e:
                     self._error = e
                     self._release_staged(sid, uploaded)
                     self._done.put(_SENTINEL)
+                    self._note_death("dispatcher", e)
                     failed = True
                     continue
-                # The batched lowering of fused_epi is the fused body.
-                mode = "fused" if n > 1 and self._mode == "fused_epi" else self._mode
                 ref = [n]  # the slot recycles when the whole batch drained
                 gen = self._ring.generation(sid)
-                for tag, outs in zip(tags, per_square):
+                for tag, (mode, outs) in zip(tags, per_square):
                     self._done.put(_InFlight(tag, outs, self.k, meta, mode=mode,
                                              slot=(self._ring, sid, ref, gen), done=done))
 
     # --- caller side ---------------------------------------------------------
 
+    @staticmethod
+    def _await(inflight: _InFlight) -> None:
+        """The pipeline's one host sync: wait for the batch's launches (on
+        the CPU, which computed synchronously, nothing to wait for)."""
+        if inflight.done is not None:
+            inflight.done.synchronize()
+
     def _materialize(self, inflight: _InFlight) -> tuple[object, ExtendedDataSquare]:
         t0 = time.perf_counter()
+        try:
+            self._await(inflight)
+        except Exception:  # chaos-ok: deferred fault -> breaker, then surface
+            # Launches are asynchronous, so a real execution fault surfaces
+            # at THIS sync, past guarded_dispatch's reach: this block is
+            # lost (the caller sees the error), but the breaker still
+            # learns, so a persistent fault steps the ladder for the
+            # blocks after it.
+            inflight.release_slot()
+            note_async_device_failure(inflight.mode or self._mode,
+                                      base=env_base_mode_for_k(self.k, self.device))
+            raise
         if inflight.done is not None:
-            try:
-                inflight.done.synchronize()  # the pipeline's one host sync
-            except Exception:
-                inflight.release_slot()
-                raise
             hand_over(inflight.outputs, inflight.done)
         meta = inflight.meta
         journal.record(
@@ -478,6 +653,12 @@ class BlockPipeline:
             ring, sid, _ref, gen = inflight.slot
             result._retain_cb = lambda: ring.pin(sid, gen)
         inflight.release_slot()
+        gauge = _queue_depth_gauge()
+        for name, q in (("tasks", self._tasks), ("staged", self._staged), ("done", self._done)):
+            gauge.set(q.qsize(), queue=name)
+        ring_gauge = _ring_occupancy_gauge()
+        for state, count in self._ring.states().items():
+            ring_gauge.set(count, state=state)
         return inflight.tag, result
 
     def _raise_worker_death(self, stage: str) -> None:
@@ -595,6 +776,7 @@ class BlockPipeline:
             if thread.is_alive():
                 print(f"BlockPipeline.close: {stage} thread leaked past join timeout "
                       f"(k={self.k})", file=sys.stderr)
+                _close_leak_counter().inc(stage=stage)
 
 
 def stream_blocks(ods_iter, k: int, depth: int = 2, batch: int | None = None, device=None):

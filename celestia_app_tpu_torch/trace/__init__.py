@@ -8,13 +8,14 @@
   spans.py      the OTLP span table and the end-to-end phase histogram.
   square_journal.py  one row per built square, the namespace label cap.
   slo.py        declarative SLOs and their burn-rate engine.
-  device_ledger.py   the owner registry of resident bytes (partial).
+  device_ledger.py   the program ledger and the owners of resident bytes.
+  profiler.py   the N-block torch.profiler window and the memory gauge.
   round_journal.py   one row per consensus (height, round).
-  flight_recorder.py the anomaly black box's `note_trigger` (partial).
+  flight_recorder.py the anomaly black box (`note_trigger`, bundles).
 
 The JAX package's trace layer (celestia_app_tpu/trace/) also has the
-height timeline, the profiler window, the exposition and the fleet plane;
-they come over with the fault and serving planes (ROADMAP, queue 1).
+height timeline, the exposition and the fleet plane; they come over with
+the serving plane (ROADMAP, queue 1).
 """
 
 from celestia_app_tpu_torch.trace.context import (

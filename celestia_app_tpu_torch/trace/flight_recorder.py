@@ -46,15 +46,14 @@ the recorder entirely (the default — tests and embedded uses opt in).
 path, worker-death handlers, and WAL replay — a diagnostic layer that
 can take down the thing it is diagnosing is worse than no layer at all.
 
-A partial copy of celestia_app_tpu/trace/flight_recorder.py: `note_trigger`
-with its per-trigger rate limit, the atomic bundle write and the recent-dump
-log, which the port's WAL salvage calls.  The bundle holds the sections
-whose planes the port has (trace tables, SLO payload, chaos spec, namespace
-labels); the /healthz payload, the degradation state, the DAS coverage
-summary, the device ledger snapshot and the height timeline
-(`serve.api.coverage_snapshot`, `trace.exposition`, `trace.timeline`,
-`chaos.degrade.degraded_state`, `device_ledger.snapshot`) wait for the fault
-and serving planes, and so does `peer_bundle_index` (ROADMAP, queue 1).
+The port of celestia_app_tpu/trace/flight_recorder.py.  The bundle holds
+the sections whose planes the port has: the trace tables, the SLO payload,
+the degradation state (`degraded`: chaos.degrade.degraded_state), the chaos
+spec, the namespace labels and the device ledger's fresh snapshot
+(`device`: trace/device_ledger.snapshot).  Three sections of the JAX bundle
+wait for the serving plane (ROADMAP, queue 1 item 4): `healthz`
+(trace/exposition.health_payload), `coverage` (serve/api.coverage_snapshot)
+and `timeline` (trace/timeline).  `peer_bundle_index` is whole.
 """
 
 from __future__ import annotations
@@ -243,8 +242,10 @@ def capture(trigger: str, context: dict | None = None) -> dict:
     """Assemble the bundle dict (separated from the write so tests can
     inspect the capture shape without touching disk)."""
     from celestia_app_tpu_torch import chaos
+    from celestia_app_tpu_torch.chaos.degrade import degraded_state
     from celestia_app_tpu_torch.trace import slo, square_journal
     from celestia_app_tpu_torch.trace.context import node_id
+    from celestia_app_tpu_torch.trace.device_ledger import snapshot as device_snapshot
     from celestia_app_tpu_torch.trace.tracer import traced
 
     tracer = traced()
@@ -258,8 +259,12 @@ def capture(trigger: str, context: dict | None = None) -> dict:
         "pid": os.getpid(),
         "node_id": node_id(),
         "slo": slo.engine().payload(),
+        "degraded": degraded_state(),
         "chaos_spec": getattr(inj, "raw", "") if inj is not None else "",
         "namespaces": square_journal.namespaces_payload(),
+        # The device-attribution ledger: what was built and resident and
+        # who owned the bytes at the moment of failure — a FRESH snapshot.
+        "device": device_snapshot(),
         "tail_rows": n,
         "tables": tables,
     }
@@ -275,6 +280,44 @@ def _jsonable(obj):
     if isinstance(obj, (str, int, float, bool)) or obj is None:
         return obj
     return repr(obj)
+
+
+def peer_bundle_index(limit_per_node: int = 8) -> dict:
+    """Recent bundles OTHER nodes dropped in this process's
+    $CELESTIA_FLIGHT_DIR, grouped by the node_id parsed from the
+    filename (`flight-<trigger>-<node_id>-<ts_ns>-<seq>.json`) — in a
+    local multi-node drill all nodes share one dir, so a fleet
+    fast-burn bundle can point at every peer's own black box without a
+    network fetch.  Newest `limit_per_node` per node; never raises
+    (unreadable dir -> empty index)."""
+    from celestia_app_tpu_torch.trace.context import node_id as own_node_id
+
+    out_dir = flight_dir()
+    if out_dir is None:
+        return {}
+    own = own_node_id()
+    by_node: dict[str, list] = {}
+    try:
+        names = sorted(os.listdir(out_dir))
+    except OSError:
+        return {}
+    for name in names:
+        if not (name.startswith("flight-") and name.endswith(".json")):
+            continue
+        parts = name[:-len(".json")].split("-")
+        # flight / trigger / node_id (may itself contain dashes) / ts / seq
+        if len(parts) < 5:
+            continue  # pre-node_id bundle name: no node to attribute
+        node, ts_raw = "-".join(parts[2:-2]), parts[-2]
+        if not ts_raw.isdigit() or node == own:
+            continue
+        by_node.setdefault(node, []).append(
+            {"name": name, "trigger": parts[1], "ts_ns": int(ts_raw)}
+        )
+    return {
+        node: sorted(dumps, key=lambda d: d["ts_ns"])[-limit_per_node:]
+        for node, dumps in sorted(by_node.items())
+    }
 
 
 def _reset_for_tests() -> None:

@@ -49,12 +49,10 @@ due.  Windows come from $CELESTIA_SLO_FAST_S / $CELESTIA_SLO_SLOW_S
 deterministic tests.
 
 The port's copy of celestia_app_tpu/trace/slo.py: the same specs, windows,
-burn rates, states and payloads on the same registry, with two parts left
-for the port's fault plane (ROADMAP, queue 1 item 3).  A fast-burn page
-writes its counter and `slo_page` row but captures no flight-recorder
-bundle (the port has no trace/flight_recorder.py yet), and nothing calls
-`maybe_tick` on the block path yet (the port's trace/journal.py has no SLO
-tick), so the engine is evaluated by whoever calls `tick()`.
+burn rates, states and payloads on the same registry.  A fast-burn page
+captures a `slo_fast_burn` flight-recorder bundle, and the block journal
+(trace/journal.record) calls `maybe_tick` on every row, as in the JAX
+package.  The /slo and /healthz HTTP faces come with the serving plane.
 """
 
 from __future__ import annotations
@@ -370,8 +368,9 @@ class SLOEngine:
                 burn.set(value, slo=name, window=window)
 
     def _page(self, page: dict) -> None:
-        """The ok -> burning transition: violation counter and trace row.
-        Must never raise into tick()'s caller."""
+        """The ok -> burning transition: violation counter, trace row,
+        flight-recorder capture.  Must never raise into tick()'s caller
+        (the block journal funnel)."""
         from celestia_app_tpu_torch.trace.metrics import registry
         from celestia_app_tpu_torch.trace.tracer import traced
 
@@ -385,6 +384,15 @@ class SLOEngine:
             burn_slow=page.get("burn", {}).get("slow"),
             objective=page.get("objective"),
         )
+        if page.get("state") == "fast_burn":
+            from celestia_app_tpu_torch.trace.flight_recorder import note_trigger
+
+            note_trigger(
+                "slo_fast_burn", slo=page["slo"],
+                burn_fast=page.get("burn", {}).get("fast"),
+                burn_slow=page.get("burn", {}).get("slow"),
+                objective=page.get("objective"),
+            )
 
     # -- read side ----------------------------------------------------------
 

@@ -56,8 +56,17 @@ Phases, in order; any failure raises and the script exits non-zero:
              built on the default stream while the pipeline runs, equal to
              the one-shot forests; a speculation hit and a discard; the
              ring's swap of a pinned slot;
- 10. commitments, 11. app, 12. chain, 13. node, 14. consensus, 15. querier,
- 16. bridge: the consensus-side entry points, the ABCI App's CheckTx /
+ 10. faults  the device fault plane (chaos/degrade.py): the degradation
+             ladder walked rung by rung at k=512 under $CELESTIA_CHAOS specs
+             (fused_epi -> fused -> staged -> host, each rung's journal row
+             and launches, on the dense and the XOR core), real launch
+             faults retried or walked to the floor, the panel and
+             sharded-panel rungs, the stream's, repair's and the parity
+             sentinel's drills, warm-up's cold and warm first calls, the
+             device ledger and the bridge backend's fall-back (the phase's
+             docstring says what it checks);
+ 11. commitments, 12. app, 13. chain, 14. node, 15. consensus, 16. querier,
+ 17. bridge: the consensus-side entry points, the ABCI App's CheckTx /
              PrepareProposal / ProcessProposal among them, two k=128
              heights of Prepare -> Process -> FinalizeBlock -> Commit, the
              in-process node (TestNode, Network, txsim) broadcasting two
@@ -65,8 +74,9 @@ Phases, in order; any failure raises and the script exits non-zero:
              two heights, and Tendermint consensus: 3 live ServingNodes of
              4 validators gossiping over localhost HTTP through 3 heights,
              one with a dead proposer and one with an injected launch fault
-             (each phase's docstring says what it checks);
- 17. giant   k=1024 and k=2048 (GF(2^16)): the materializing fused, epi and
+             that outlasts the ladder (each phase's docstring says what it
+             checks);
+ 18. giant   k=1024 and k=2048 (GF(2^16)): the materializing fused, epi and
              XOR lowerings and the panel-streamed one ($CELESTIA_PIPE_PANEL:
              64-row panels, 48-row panels at k=1024, the FFT column leg):
              one data root and one EDS per k, the roots-only twins, 64
@@ -74,7 +84,7 @@ Phases, in order; any failure raises and the script exits non-zero:
              lowering as counted from the code, wall and device time and
              peak memory per lowering, a k=1024 BlockPipeline under panel
              mode (batch 1, 16 panels per square);
- 18. mesh    the multi-device plane on 4 logical shards of cuda:0, each with
+ 19. mesh    the multi-device plane on 4 logical shards of cuda:0, each with
              its own stream (and again over the real cards where there are
              two or more): the k=512 sharded extend over 2 and 4 shards and
              its DAH-only twin == single-card compute, sharded repair with
@@ -1277,6 +1287,634 @@ def phase_stream(torch, card: str) -> None:
             f"({batch * k * k * 512 / 1e6:.1f} MB): {(time.perf_counter() - t0) * 1e3:.3f} ms")
 
 
+# --- the device fault plane: the ladder, the sentinel, warm-up, the bridge ---
+
+#: Square sizes of phase_faults: the ladder walk, the panel drills, repair and
+#: the sentinel at the main path's k=512 (GF(2^16)); real launch faults, the
+#: stream, warm-up's small size and the bridge at k=128.
+FAULT_K = 512
+FAULT_SMALL_K = 128
+
+
+def rung_launches(k: int, mode: str, core: str = "rs_dense") -> dict:
+    """Launches of one extend + DAH at square size k on one rung of the
+    ladder: two RS launches of the core on fused, staged and host (the
+    port's host rung is the staged pipeline on the card), the row phase's
+    and one rs_dense_leaf on fused_epi; one sha256_leaves and the tree
+    levels' sha256 everywhere (the epilogue hashes the bottom half)."""
+    levels = (2 * k).bit_length() - 1
+    want = {"rs_dense": 0, "rs_xor": 0, "rs_dense_leaf": 0, "sha256_leaf": 1,
+            "sha256": 2 * levels + levels + 2}
+    if mode == "fused_epi":
+        want[core] += 1
+        want["rs_dense_leaf"] = 1
+    else:
+        want[core] += 2
+    return want
+
+
+def trip_once_seed(seam: str, threshold: int, p: float = 0.5, pattern=None) -> int:
+    """The least chaos seed whose draws at `seam` with probability p give
+    `pattern` (default: `threshold` failures, then a pass): with
+    CELESTIA_CHAOS=seed=<it>,<fault>=<p>, exactly one rung trips and the
+    next one runs (chaos/spec.py draws random.Random(
+    "celestia-chaos:<seed>:<seam>") once per seam call)."""
+    import random
+
+    pattern = pattern or [True] * threshold + [False]
+    for seed in range(100_000):
+        rng = random.Random(f"celestia-chaos:{seed}:{seam}")
+        if all((rng.random() < p) == want for want in pattern):
+            return seed
+    raise AssertionError(f"no seed gives {pattern} at {seam}")
+
+
+def counter_value(name: str, **labels) -> float:
+    from celestia_app_tpu_torch.trace.metrics import registry
+
+    fam = registry().get(name)
+    if fam is None:
+        return 0.0
+    return sum(v for key, v in fam.samples() if all(key.get(a) == b for a, b in labels.items()))
+
+
+def roots_of(eds) -> tuple:
+    return (eds.data_root(), tuple(eds.row_roots()), tuple(eds.col_roots()))
+
+
+class LaunchFault:
+    """In place of kernels/_build.launch: raise an injected fault on the
+    first `shots` launches (None: on every launch) of the kernels named
+    (None: any); otherwise launch."""
+
+    def __init__(self, inner, shots=1, kernels=None):
+        self.inner, self.shots, self.kernels = inner, shots, kernels
+        self.fired = 0
+        self.lock = threading.Lock()
+
+    def __call__(self, kernel, *args, **kwargs):
+        if self.kernels is None or kernel in self.kernels:
+            with self.lock:
+                fire = self.shots is None or self.fired < self.shots
+                if fire:
+                    self.fired += 1
+            if fire:
+                raise RuntimeError(f"injected launch fault in {kernel}")
+        return self.inner(kernel, *args, **kwargs)
+
+
+def flight_bundles(flight_dir: str, trigger: str) -> list[dict]:
+    out = []
+    for name in sorted(os.listdir(flight_dir)):
+        if name.startswith(f"flight-{trigger}-") and name.endswith(".json"):
+            with open(os.path.join(flight_dir, name)) as f:
+                out.append(json.load(f))
+    return out
+
+
+_WARM_PROBE = r"""
+import json, sys, time
+import numpy as np
+import torch
+from celestia_app_tpu_torch.da import eds as eds_mod
+from celestia_app_tpu_torch.da import extend_shares
+from celestia_app_tpu_torch.trace import journal
+
+warm = sys.argv[1] == "warm"
+sizes = [int(k) for k in sys.argv[2].split(",")]
+out = {}
+if warm:
+    t0 = time.perf_counter()
+    eds_mod.warmup(sizes)
+    out["warmup_s"] = time.perf_counter() - t0
+    out["warmup_rows"] = [{key: r[key] for key in ("k", "mode", "compile", "warm_ms")}
+                          for r in journal.rows("warmup")]
+for k in sizes:
+    rng = np.random.default_rng(k)
+    ods = rng.integers(0, 256, (k * k, 512), dtype=np.uint8)
+    ods[:, :29] = 0
+    shares = [r.tobytes() for r in ods]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    root = extend_shares(shares).data_root()
+    torch.cuda.synchronize()
+    row = journal.rows("compute")[-1]
+    out[str(k)] = {"first_ms": (time.perf_counter() - t0) * 1e3, "compile": row["compile"],
+                   "mode": row["mode"], "root": root.hex()}
+print(json.dumps(out))
+"""
+
+
+def warm_probe(mode: str, sizes: str) -> dict:
+    """Run _WARM_PROBE in a fresh interpreter from the repo root: the first
+    extend_shares of each size, cold or after da.eds.warmup."""
+    out = subprocess.run([sys.executable, "-c", _WARM_PROBE, mode, sizes],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    if out.returncode != 0:
+        raise AssertionError(f"warm-up probe ({mode}) exited {out.returncode}:\n"
+                             f"{out.stderr[-3000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def phase_faults(torch, card: str) -> dict:
+    """The device fault plane on the card (chaos/degrade.py and the seams
+    around it), each drill against golden roots computed on a clean rung:
+
+      1. the ladder walk at k=512 (GF(2^16)) from $CELESTIA_PIPE_FUSED=epi:
+         a $CELESTIA_CHAOS spec per step trips exactly one rung (chaos seeds
+         chosen from the seam's draws), fused_epi -> fused -> staged ->
+         host, each compute's journal row naming the rung and its launches
+         the rung's (rs_dense_leaf only on fused_epi); degraded_state, the
+         celestia_degraded gauge, recoveries{degraded}, a breaker_trip
+         bundle with its degraded and device sections; a spec that fails
+         every rung raises past the floor; again under $CELESTIA_RS_XOR=on;
+      2. real launch faults at k=128 through kernels/_build.launch: a
+         one-shot fault is retried (recoveries{retried} +1, the ladder
+         unmoved, the same roots); a persistent one walks to the floor and
+         the original error raises (a DeviceFault through device.on_device);
+      3. a mid-panel fault at k=512 under $CELESTIA_PIPE_PANEL=auto steps
+         panel -> the materializing base; extend_shard_fail steps
+         sharded_panel -> panel over 4 logical shards of cuda:0;
+      4. the stream at k=128 (batch 4, depth 2): a batched fault falls to
+         unbatched dispatches, a failed upload is retried, a deferred fault
+         at the drain's sync feeds the breaker, a dispatcher death writes a
+         worker_death bundle and submit / drain raise with the cause;
+      5. repair at k=512 with Q0 withheld: a sweep fault is retried; a
+         corrupted survivor raises RootMismatch and writes its bundle;
+      6. the parity sentinel at every block on fused and fused_epi: 8
+         squares at k=512 each "match"; a forced staged mismatch gives
+         "mismatch", a trace row and a bundle;
+      7. warm-up: in fresh interpreters the first extend_shares at k=128
+         and 512, cold and after warmup([128, 512]) (compile "hit");
+      8. the device ledger: reconcile() on device_memory_stats, owners,
+         the unattributed residual, the programs' calls and build seconds;
+      9. the bridge backend at k=128: roots == in-process, the worker
+         killed -> one call on the in-process path with the stderr line,
+         the next call respawns the worker.
+    The ladder is re-armed (reset_for_tests) between drills and left
+    healthy.  Returns the figures PERF.md quotes."""
+    import io
+    import tempfile
+
+    from celestia_app_tpu_torch import chaos
+    from celestia_app_tpu_torch.chaos import degrade
+    from celestia_app_tpu_torch.da import ExtendedDataSquare, extend_shares, repair
+    from celestia_app_tpu_torch.da import eds as eds_mod
+    from celestia_app_tpu_torch.da.repair import RootMismatch
+    from celestia_app_tpu_torch.device import DeviceFault, on_device
+    from celestia_app_tpu_torch.kernels import _build, panel_sharded
+    from celestia_app_tpu_torch.kernels.panel import panel_rows
+    from celestia_app_tpu_torch.parallel import BlockPipeline, stream_blocks
+    from celestia_app_tpu_torch.parallel import pipeline as pipeline_mod
+    from celestia_app_tpu_torch.parallel.mesh import EXTEND_AXIS, Mesh
+    from celestia_app_tpu_torch.trace import device_ledger, journal
+    from celestia_app_tpu_torch.trace.tracer import traced
+
+    t_phase = time.perf_counter()
+    flight_dir = tempfile.mkdtemp(prefix="flight-")
+    figures: dict = {}
+    threshold = degrade.DEVICE_BREAKER.threshold
+    big = random_square(FAULT_K, seed=14_000 + FAULT_K)
+    small = random_square(FAULT_SMALL_K, seed=14_000 + FAULT_SMALL_K)
+    dense = {"CELESTIA_PIPE_FUSED": "on", "CELESTIA_RS_XOR": "off", "CELESTIA_PIPE_PANEL": "off",
+             "CELESTIA_RS_CONSTRUCTION": "vandermonde", "CELESTIA_FLIGHT_DIR": flight_dir,
+             "CELESTIA_FLIGHT_MIN_INTERVAL_S": "0", "CELESTIA_CHAOS": ""}
+
+    def compute(ods, **env):
+        """One compute under `env`: (roots, its journal row, its launches, ms)."""
+        with environment(env):
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            eds = ExtendedDataSquare.compute(ods)
+            got = roots_of(eds)
+            ms = (time.perf_counter() - t0) * 1e3
+            return got, journal.rows("compute")[-1], dict(_build.LAUNCHES), ms
+
+    degrade.reset_for_tests()
+    chaos.uninstall()
+    with environment(dense):
+        golden_big = compute(big)[0]
+        golden_small = compute(small)[0]
+
+        # 1. The ladder walk, rung by rung, on the dense and the XOR core.
+        seed = trip_once_seed("device.dispatch", threshold)
+        steps = (("fused", f"seed={seed},dispatch_fail=0.5"),
+                 ("staged", f"seed={seed},dispatch_fail=1.0"),
+                 ("host", f"seed={seed},dispatch_fail=0.5,dispatch_fail_all=1"))
+        walk = {}
+        for core, xor in (("rs_dense", "off"), ("rs_xor", "on")):
+            degrade.reset_for_tests()
+            env = {"CELESTIA_PIPE_FUSED": "epi", "CELESTIA_RS_XOR": xor}
+            got, row, launches, ms = compute(big, **env)
+            rows = [("fused_epi", row, launches, ms, got)]
+            for rung, spec in steps:
+                degraded0 = counter_value("celestia_recoveries_total", seam="device.dispatch",
+                                          outcome="degraded")
+                got, row, launches, ms = compute(big, **env, CELESTIA_CHAOS=spec)
+                stepped = counter_value("celestia_recoveries_total", seam="device.dispatch",
+                                        outcome="degraded") - degraded0
+                if (degrade.degraded_state() != {"device": rung} or stepped != 1
+                        or counter_value("celestia_degraded", layer="device", mode=rung) != 1.0):
+                    raise AssertionError(f"ladder step to {rung} under {spec!r}: state "
+                                         f"{degrade.degraded_state()}, degraded +{stepped}")
+                rows.append((rung, row, launches, ms, got))
+            for rung, row, launches, ms, got in rows:
+                if got != golden_big or row["mode"] != rung:
+                    raise AssertionError(f"ladder walk ({core}) on {rung}: journal mode "
+                                         f"{row['mode']}, roots equal {got == golden_big}")
+                check_launches(f"ladder walk ({core}) on {rung}", launches,
+                               rung_launches(FAULT_K, rung, core))
+            try:
+                compute(big, **env, CELESTIA_CHAOS=f"seed={seed},dispatch_fail=1.0,"
+                                                   "dispatch_fail_all=1")
+            except chaos.ChaosInjected as e:
+                floor_err = repr(e)
+            else:
+                raise AssertionError("a spec failing every rung did not raise past the floor")
+            walk[core] = {rung: round(ms, 3) for rung, _, _, ms, _ in rows}
+            log(f"[{card}] ladder walk k={FAULT_K} ({core} core) from CELESTIA_PIPE_FUSED=epi, "
+                f"breaker threshold {threshold}, chaos seed {seed}: "
+                + "; ".join(f"{rung} {ms:.3f} ms, launches "
+                            f"{ {n: c for n, c in launches.items() if c} }"
+                            for rung, _, launches, ms, _ in rows)
+                + f"; every rung's roots == golden, its journal row names it; past the floor "
+                  f"{floor_err}")
+        trips = flight_bundles(flight_dir, "breaker_trip")
+        last = trips[-1] if trips else {}
+        if not trips or last.get("degraded") != {"device": "host"} or \
+                not last.get("device", {}).get("programs") or \
+                "measured_source" not in last["device"].get("ownership", {}):
+            raise AssertionError(f"breaker_trip bundles {len(trips)}: last degraded "
+                                 f"{last.get('degraded')}, device section "
+                                 f"{sorted(last.get('device', {}))}")
+        log(f"[{card}] ladder: {len(trips)} breaker_trip bundles, the last with degraded "
+            f"{last['degraded']} and a device section of {len(last['device']['programs'])} "
+            f"programs, ownership measured by {last['device']['ownership']['measured_source']}")
+        figures["walk_ms"] = walk
+        degrade.reset_for_tests()
+
+        # 2. Real launch faults through kernels/_build.launch.
+        retried0 = counter_value("celestia_recoveries_total", seam="device.dispatch",
+                                 outcome="retried")
+        clean_ms = compute(small)[3]
+        fault = LaunchFault(_build.launch, shots=1)
+        with swapped(_build, "launch", fault):
+            got, row, _, retry_ms = compute(small)
+        retried = counter_value("celestia_recoveries_total", seam="device.dispatch",
+                                outcome="retried") - retried0
+        if got != golden_small or retried != 1 or degrade.degraded_state() is not None \
+                or row["mode"] != "fused" or fault.fired != 1:
+            raise AssertionError(f"one-shot launch fault: retried +{retried}, state "
+                                 f"{degrade.degraded_state()}, mode {row['mode']}")
+        fault = LaunchFault(_build.launch, shots=None)
+        t0 = time.perf_counter()
+        try:
+            with swapped(_build, "launch", fault), on_device("extend + DAH"):
+                compute(small)
+        except DeviceFault as e:
+            walk_ms = (time.perf_counter() - t0) * 1e3
+            if "injected launch fault" not in repr(e.__cause__):
+                raise AssertionError(f"past the floor: not the injected fault: {e!r}") from e
+            floor = repr(e)[:120]
+        else:
+            raise AssertionError("a persistent launch fault did not raise past the floor")
+        if degrade.degraded_state() != {"device": "host"} or fault.fired != 3 * threshold:
+            raise AssertionError(f"persistent fault: state {degrade.degraded_state()}, "
+                                 f"{fault.fired} faulted launches")
+        degrade.reset_for_tests()
+        figures.update(clean_ms=clean_ms, retry_ms=retry_ms, walk_to_floor_ms=walk_ms)
+        log(f"[{card}] launch faults k={FAULT_SMALL_K}: clean {clean_ms:.3f} ms; a one-shot "
+            f"fault retried once ({retry_ms:.3f} ms, the ladder unmoved, roots == golden); a "
+            f"persistent fault: {fault.fired} failed attempts down fused -> staged -> host in "
+            f"{walk_ms:.3f} ms, then {floor}")
+
+        # 3. The panel and sharded-panel rungs.
+        panel_env = {"CELESTIA_PIPE_PANEL": "auto"}
+        # Per panel attempt: guarded_dispatch's seam passes, the first
+        # panel's passes, the second panel's fails; then fused's passes.
+        pseed = trip_once_seed("device.dispatch", threshold,
+                               pattern=[False, False, True] * threshold + [False])
+        got, row, launches, ms = compute(big, **panel_env,
+                                         CELESTIA_CHAOS=f"seed={pseed},dispatch_fail=0.5")
+        if got != golden_big or row["mode"] != "fused" or \
+                degrade.degraded_state() != {"device": "fused"}:
+            raise AssertionError(f"mid-panel fault: mode {row['mode']}, state "
+                                 f"{degrade.degraded_state()}")
+        check_launches("after the mid-panel walk", launches, {
+            **{n: c for n, c in rung_launches(FAULT_K, "fused").items()},
+            # Each failed attempt ran its first panel: a row phase and a
+            # column partial (2 rs_dense) and its leaves (1 sha256_leaves).
+            "rs_dense": 2 + 2 * threshold, "sha256_leaf": 1 + threshold})
+        degrade.reset_for_tests()
+        with environment(panel_env):
+            height = panel_rows(FAULT_K)
+        log(f"[{card}] panel rung k={FAULT_K} ({height}-row panels): a fault in "
+            f"the second panel of "
+            f"each of {threshold} attempts (chaos seed {pseed}) stepped panel -> fused, roots "
+            f"== golden, {ms:.3f} ms, launches {launches}")
+        logical = Mesh([torch.device("cuda", 0)] * 4, EXTEND_AXIS)
+        with swapped(panel_sharded, "device_count", lambda device=None: 4), \
+                swapped(panel_sharded, "extend_mesh", lambda shards, device=None: logical):
+            sharded_env = {**panel_env, "CELESTIA_EXTEND_SHARDS": "4"}
+            first_sharded_ms = compute(big, **sharded_env)[3]  # builds the shard slices
+            got, row, _, clean_sharded_ms = compute(big, **sharded_env)
+            if got != golden_big or row["mode"] != "sharded_panel" or row.get("shards") != 4:
+                raise AssertionError(f"sharded panel: mode {row['mode']}, row {row}")
+            got, row, launches, ms = compute(big, **sharded_env,
+                                             CELESTIA_CHAOS="seed=4,extend_shard_fail=1.0")
+        if got != golden_big or row["mode"] != "panel" or \
+                degrade.degraded_state() != {"device": "panel"}:
+            raise AssertionError(f"extend_shard_fail: mode {row['mode']}, state "
+                                 f"{degrade.degraded_state()}")
+        degrade.reset_for_tests()
+        log(f"[{card}] sharded rung k={FAULT_K} over 4 logical shards of cuda:0: first call "
+            f"{first_sharded_ms:.3f} ms, clean {clean_sharded_ms:.3f} ms; extend_shard_fail=1.0 "
+            f"stepped sharded_panel -> panel "
+            f"({row['panels']} panels), roots == golden, {ms:.3f} ms")
+
+        # 4. The stream.
+        stream_odss = [(i, random_square(FAULT_SMALL_K, seed=14_200 + i)) for i in range(12)]
+        want = [ExtendedDataSquare.compute(o).data_root() for _, o in stream_odss]
+
+        def stream(label, **kw):
+            before = len(journal.rows("stream"))
+            got = [(t, e.data_root()) for t, e in stream_blocks(
+                iter(stream_odss), FAULT_SMALL_K, depth=2, batch=4, **kw)]
+            if got != list(zip(range(len(want)), want)):
+                raise AssertionError(f"stream ({label}): roots != one-shot")
+            return journal.rows("stream")[before:]
+
+        inner_batched = pipeline_mod.batched_pipeline_for_mode
+        failed_batches = []
+
+        def faulty_batched(mode, k, n, *args, **kwargs):
+            run = inner_batched(mode, k, n, *args, **kwargs)
+            if threading.current_thread().name != "block-pipeline-dispatcher" or failed_batches:
+                return run
+
+            def fail(x):
+                failed_batches.append(n)
+                raise RuntimeError("injected batched launch fault")
+            return fail
+
+        unbatched0 = counter_value("celestia_recoveries_total", seam="device.dispatch",
+                                   outcome="unbatched")
+        with swapped(pipeline_mod, "batched_pipeline_for_mode", faulty_batched):
+            rows = stream("batched fault")
+        unbatched = counter_value("celestia_recoveries_total", seam="device.dispatch",
+                                  outcome="unbatched") - unbatched0
+        if failed_batches and unbatched != 1:
+            raise AssertionError(f"batched fault: unbatched +{unbatched}")
+        if not failed_batches:
+            raise AssertionError(f"no batched dispatch in the stream: batch sizes "
+                                 f"{[r['batch_size'] for r in rows]}")
+        useed = trip_once_seed("device.upload", 3, p=0.3,
+                               pattern=[True, False] + [False] * 11)
+        upload0 = counter_value("celestia_recoveries_total", seam="device.upload",
+                                outcome="retried")
+        with environment({"CELESTIA_CHAOS": f"seed={useed},upload_fail=0.3"}):
+            stream("upload retry")
+        uploads = counter_value("celestia_recoveries_total", seam="device.upload",
+                                outcome="retried") - upload0
+        if uploads < 1:
+            raise AssertionError("no upload retry under upload_fail")
+        # Every dispatch done before the first drain: a success between two
+        # deferred faults would reset the breaker's streak.
+        pipe = BlockPipeline(FAULT_SMALL_K, depth=threshold + 1, batch=1)
+        inner_await, deferred = pipe._await, []
+
+        def deferred_fault(inflight):
+            inner_await(inflight)
+            if len(deferred) < threshold:
+                deferred.append(inflight.tag)
+                raise RuntimeError("injected deferred device fault at the drain's sync")
+
+        pipe._await = deferred_fault
+        try:
+            for tag, ods in stream_odss[:threshold + 1]:
+                pipe.submit(ods, tag)
+            deadline = time.monotonic() + 60
+            while pipe._done.qsize() < threshold + 1 and time.monotonic() < deadline:
+                time.sleep(0.01)
+            for _ in range(threshold):
+                try:
+                    pipe._drain_one()
+                except RuntimeError as e:
+                    if "deferred" not in str(e):
+                        raise
+                else:
+                    raise AssertionError("a deferred fault did not raise out of the drain")
+            last_tag, last_eds = pipe._drain_one()
+        finally:
+            pipe.close()
+        if degrade.degraded_state() != {"device": "staged"} or \
+                last_eds.data_root() != want[last_tag]:
+            raise AssertionError(f"deferred faults: state {degrade.degraded_state()}")
+        degrade.reset_for_tests()
+        deaths0 = len(flight_bundles(flight_dir, "worker_death"))
+        pipe = BlockPipeline(FAULT_SMALL_K, depth=1, batch=1)
+
+        def dead_rung(mode):
+            def fail(x):
+                raise RuntimeError(f"injected dispatcher fault on {mode}")
+            return fail
+
+        pipe._resolve_pipe = dead_rung
+        try:
+            pipe.submit(stream_odss[0][1], 0)
+            deadline = time.monotonic() + 30
+            while pipe._error is None and time.monotonic() < deadline:
+                time.sleep(0.01)
+            errors = []
+            for call in (lambda: pipe.submit(stream_odss[1][1], 1), lambda: list(pipe.drain())):
+                try:
+                    call()
+                except RuntimeError as e:
+                    errors.append(e)
+        finally:
+            pipe.close()
+        pipe._dispatcher.join(30)  # its bundle is written after the death sentinel
+        deaths = flight_bundles(flight_dir, "worker_death")[deaths0:]
+        if len(errors) != 2 or any("injected dispatcher fault" not in repr(e.__cause__)
+                                   for e in errors) or not deaths:
+            raise AssertionError(f"dispatcher death: errors {errors}, {len(deaths)} bundles")
+        degrade.reset_for_tests()
+        log(f"[{card}] stream k={FAULT_SMALL_K} batch 4 depth 2, {len(stream_odss)} squares, "
+            f"roots == one-shot in each: a batched fault (batch of {failed_batches[0]}) fell to "
+            f"unbatched dispatches (unbatched +{unbatched}); upload_fail=0.3 (seed {useed}) "
+            f"retried {uploads:.0f} upload(s); {threshold} deferred faults at the drain's sync "
+            f"stepped the ladder to staged; a dead dispatcher wrote {len(deaths)} worker_death "
+            f"bundle(s), submit and drain raised {errors[0]!r} from {errors[0].__cause__!r}")
+
+        # 5. Repair with Q0 withheld.
+        full = ExtendedDataSquare.compute(big)
+        shares = full.squared()
+        present = np.ones((2 * FAULT_K, 2 * FAULT_K), dtype=bool)
+        present[:FAULT_K, :FAULT_K] = False
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        repair(shares, present)  # builds the pattern's recover matrix, unless cached
+        torch.cuda.synchronize()
+        first_repair_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        repair(shares, present)
+        torch.cuda.synchronize()
+        clean_repair_ms = (time.perf_counter() - t0) * 1e3
+        retried0 = counter_value("celestia_recoveries_total", seam="device.dispatch",
+                                 outcome="retried")
+        fault = LaunchFault(_build.launch, shots=1, kernels={"rs_dense"})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with swapped(_build, "launch", fault):
+            fixed = repair(shares, present)
+        torch.cuda.synchronize()
+        repair_ms = (time.perf_counter() - t0) * 1e3
+        retried = counter_value("celestia_recoveries_total", seam="device.dispatch",
+                                outcome="retried") - retried0
+        if roots_of(fixed) != golden_big or retried != 1 or degrade.degraded_state() is not None:
+            raise AssertionError(f"repair sweep fault: retried +{retried}")
+        bad = shares.copy()
+        bad[FAULT_K + 3, 5, 100] ^= 1
+        mismatches0 = len(flight_bundles(flight_dir, "root_mismatch"))
+        detections0 = counter_value("celestia_da_detections_total", kind="root_mismatch")
+        try:
+            repair(bad, present)
+        except RootMismatch as e:
+            rejected = repr(e)
+        else:
+            raise AssertionError("a corrupted survivor was accepted")
+        if len(flight_bundles(flight_dir, "root_mismatch")) != mismatches0 + 1 or \
+                counter_value("celestia_da_detections_total", kind="root_mismatch") != \
+                detections0 + 1:
+            raise AssertionError("RootMismatch wrote no root_mismatch bundle or detection")
+        log(f"[{card}] repair k={FAULT_K} Q0 withheld: first {first_repair_ms:.3f} ms (the "
+            f"pattern's recover matrix, unless an earlier phase built it), clean "
+            f"{clean_repair_ms:.3f} ms; a one-shot rs_dense fault in the "
+            f"sweep retried once ({repair_ms:.3f} ms), repaired roots == golden; a corrupted survivor "
+            f"raised {rejected} and wrote a root_mismatch bundle")
+
+        # 6. The parity sentinel at every block.
+        def checks(result: str) -> float:
+            return counter_value("celestia_parity_checks_total", result=result)
+
+        sentinel = {}
+        for mode_env in ("on", "epi"):
+            squares = [random_square(FAULT_K, seed=14_300 + i) for i in range(4)]
+            with environment({"CELESTIA_PIPE_FUSED": mode_env}):
+                off = [compute(o)[3] for o in squares]
+                match0 = checks("match")
+                t0 = time.perf_counter()
+                with environment({"CELESTIA_PARITY_SENTINEL": "1"}):
+                    on = [compute(o)[3] for o in squares]
+                    eds_mod.drain_parity_checks(120)
+                total_ms = (time.perf_counter() - t0) * 1e3
+            matched = checks("match") - match0
+            if matched != len(squares):
+                raise AssertionError(f"sentinel on {mode_env}: {matched} matches of "
+                                     f"{len(squares)}, errors {checks('error')}")
+            sentinel[mode_env] = (float(np.median(off)), float(np.median(on)), total_ms)
+        mismatch0 = checks("mismatch")
+        rows0 = len(traced().table("parity_mismatch"))
+        bundles0 = len(flight_bundles(flight_dir, "parity_mismatch"))
+        flipped = lambda *a: bytes(32)  # noqa: E731
+        with swapped(eds_mod, "_staged_root", flipped), \
+                environment({"CELESTIA_PARITY_SENTINEL": "1"}):
+            compute(big)
+            eds_mod.drain_parity_checks(120)
+        if checks("mismatch") != mismatch0 + 1 or \
+                len(traced().table("parity_mismatch")) != rows0 + 1 or \
+                len(flight_bundles(flight_dir, "parity_mismatch")) != bundles0 + 1:
+            raise AssertionError("a forced staged mismatch was not reported")
+        figures["sentinel"] = sentinel
+        log(f"[{card}] parity sentinel k={FAULT_K}, every block: "
+            + "; ".join(f"{'fused' if m == 'on' else 'fused_epi'}: 4 squares each match, "
+                        f"compute median {a:.3f} ms unarmed, {b:.3f} ms armed, 4 armed + their "
+                        f"checks {c:.3f} ms" for m, (a, b, c) in sentinel.items())
+            + "; a forced staged mismatch: result mismatch, a parity_mismatch row and bundle")
+
+    # 7. Warm-up, in fresh interpreters (the flight dir and chaos off).
+    sizes = f"{FAULT_SMALL_K},{FAULT_K}"
+    with environment({key: val for key, val in dense.items()
+                      if not key.startswith("CELESTIA_FLIGHT")}):
+        cold = warm_probe("cold", sizes)
+        warm = warm_probe("warm", sizes)
+    for k in (FAULT_SMALL_K, FAULT_K):
+        if cold[str(k)]["root"] != warm[str(k)]["root"] or warm[str(k)]["compile"] != "hit":
+            raise AssertionError(f"warm-up k={k}: cold {cold[str(k)]}, warm {warm[str(k)]}")
+    figures["warmup"] = {"cold": cold, "warm": warm}
+    log(f"[{card}] warm-up (fresh interpreters): first extend_shares cold "
+        + ", ".join(f"k={k} {cold[str(k)]['first_ms']:.3f} ms ({cold[str(k)]['compile']})"
+                    for k in (FAULT_SMALL_K, FAULT_K))
+        + f"; warmup([{sizes}]) {warm['warmup_s']:.3f} s (rows "
+        + ", ".join(f"k={r['k']} {r['mode']} {r['warm_ms']:.3f} ms" for r in warm["warmup_rows"])
+        + "), then first extend_shares "
+        + ", ".join(f"k={k} {warm[str(k)]['first_ms']:.3f} ms ({warm[str(k)]['compile']})"
+                    for k in (FAULT_SMALL_K, FAULT_K)))
+
+    # 8. The device ledger after the phase.
+    torch.cuda.synchronize()
+    snap = device_ledger.snapshot(device="cuda")
+    own = snap["ownership"]
+    if own["measured_source"] != "device_memory_stats" or not snap["programs"]:
+        raise AssertionError(f"ledger: {own}")
+    figures["ledger"] = own
+    log(f"[{card}] device ledger: measured {own['measured_bytes'] / 1e9:.3f} GB "
+        f"({own['measured_source']}), owned {own['owned_bytes'] / 1e9:.3f} GB by "
+        f"{ {n: round(b / 1e6, 3) for n, b in own['owners'].items() if b} } MB, unattributed "
+        f"residual {own['unattributed_residual'] / 1e9:.3f} GB; programs (family k mode: calls, "
+        f"first-call s): "
+        + "; ".join(f"{p['family']} {p['k']} {p['mode'] or '-'}"
+                    f"{'/' + str(p['batch']) if p['batch'] else ''}: {p['dispatches']}, "
+                    f"{p['compile_s']:.3f}" for p in snap["programs"] if p["dispatches"]))
+
+    # 9. The bridge backend at k=128.
+    lib, _ = build_bridge()
+    shares_small = [row.tobytes() for row in small.reshape(-1, 512)]
+    bridge_env = {**{k: v for k, v in dense.items() if not k.startswith("CELESTIA_FLIGHT")},
+                  "CELESTIA_SQUARE_BACKEND": "bridge", "CELESTIA_BRIDGE_LIB": lib}
+    with environment(bridge_env), watchdog(240, "the bridge backend drill"):
+        try:
+            t0 = time.perf_counter()
+            first = extend_shares(shares_small)
+            spawn_ms = (time.perf_counter() - t0) * 1e3
+            pids = bridge_workers()
+            t0 = time.perf_counter()
+            second = extend_shares(shares_small)
+            trip_ms = (time.perf_counter() - t0) * 1e3
+            if roots_of(first) != golden_small or roots_of(second) != golden_small or \
+                    len(pids) != 1 or eds_mod._BRIDGE_CLIENT is None:
+                raise AssertionError(f"bridge backend: workers {pids}, roots equal "
+                                     f"{roots_of(first) == golden_small}")
+            os.kill(pids[0], signal.SIGKILL)
+            os.waitpid(pids[0], 0)
+            err = io.StringIO()
+            rows0 = len(journal.rows("compute"))
+            with contextlib.redirect_stderr(err):
+                fallback = extend_shares(shares_small)
+            line = err.getvalue().strip()
+            if roots_of(fallback) != golden_small or "falling back to device pipeline" not in line \
+                    or len(journal.rows("compute")) != rows0 + 1 or eds_mod._BRIDGE_CLIENT:
+                raise AssertionError(f"bridge fallback: {line!r}")
+            respawned = extend_shares(shares_small)
+            new_pids = bridge_workers()
+            if roots_of(respawned) != golden_small or len(new_pids) != 1 or new_pids == pids:
+                raise AssertionError(f"bridge respawn: workers {pids} -> {new_pids}")
+        finally:
+            eds_mod._reset_bridge()
+    log(f"[{card}] bridge backend k={FAULT_SMALL_K}: first call (worker spawn) "
+        f"{spawn_ms:.3f} ms, a round trip {trip_ms:.3f} ms, roots == in-process; the worker "
+        f"SIGKILLed -> one call on the in-process path ({line!r}); the next call respawned "
+        f"worker {new_pids[0]}")
+    shutil.rmtree(flight_dir, ignore_errors=True)
+    degrade.reset_for_tests()
+    chaos.uninstall()
+    log(f"[{card}] faults: the phase {time.perf_counter() - t_phase:.1f} s")
+    return figures
+
+
 # --- consensus-side entry points: commitments, the proof querier, the bridge ---
 
 
@@ -1587,11 +2225,13 @@ def phase_app(torch, card: str) -> dict:
     size; launches per Prepare and per non-proposer Process == one
     commitment batch + one extend (memo cleared); wall (median of 3) and its
     split, device busy and idle; one Prepare under CELESTIA_PIPE_FUSED=epi;
-    an injected launch fault raises DeviceFault out of process_proposal (in
-    the commitments, then in the extend); a k=512 block under
+    an injected launch fault on every launch raises DeviceFault out of
+    process_proposal (in the commitments; then in the extend, after the
+    degradation ladder walked to its floor); a k=512 block under
     square_size_upper_bound=512.  Returns the launches per Prepare and per
     Process."""
     from celestia_app_tpu_torch.app import BlockData
+    from celestia_app_tpu_torch.chaos import degrade
     from celestia_app_tpu_torch.da import extend_shares
     from celestia_app_tpu_torch.device import DeviceFault
     from celestia_app_tpu_torch.kernels import _build
@@ -1731,13 +2371,17 @@ def phase_app(torch, card: str) -> dict:
     log(f"[{card}] app Prepare k={APP_K} under CELESTIA_PIPE_FUSED=epi: the same BlockData, "
         f"{epi_ms:.3f} ms, launches {epi_launches}")
 
-    # An injected launch fault raises out of process_proposal: first in the
-    # commitments (memo cleared), then in the extend (memo warm).
+    # An injected launch fault, on every launch for the whole call, raises
+    # out of process_proposal: first in the commitments (memo cleared; no
+    # ladder under them, as in the JAX package), then in the extend (memo
+    # warm), whose guarded dispatch first walks the degradation ladder to
+    # its floor (chaos/degrade.py); the ladder is re-armed after.
     def failing_launch(kernel, *args, **kwargs):
         raise RuntimeError(f"injected launch fault in {kernel}")
 
-    for where, memo_warm, names in (("the commitments", False, "blob share commitments"),
-                                    ("the extend", True, "extend + DAH")):
+    for where, memo_warm, names, ladder in (
+            ("the commitments", False, "blob share commitments", None),
+            ("the extend", True, "extend + DAH", {"device": "host"})):
         app = fresh_app(genesis)
         batched._COMMIT_MEMO.clear()
         if memo_warm:
@@ -1746,9 +2390,14 @@ def phase_app(torch, card: str) -> dict:
             with swapped(_build, "launch", failing_launch):
                 verdict = app.process_proposal(data)
         except DeviceFault as e:
-            if "injected launch fault" not in repr(e.__cause__) or names not in str(e):
-                raise AssertionError(f"not the injected fault in {where}: {e!r}") from e
-            log(f"[{card}] app: an injected launch fault in {where} raises {e!r}")
+            state = degrade.degraded_state()
+            degrade.reset_for_tests()
+            if "injected launch fault" not in repr(e.__cause__) or names not in str(e) \
+                    or state != ladder:
+                raise AssertionError(f"not the injected fault in {where}, or the ladder at "
+                                     f"{state}: {e!r}") from e
+            log(f"[{card}] app: an injected launch fault in {where} raises {e!r}; the ladder "
+                f"{'walked to ' + state['device'] + ' first' if state else 'did not move'}")
         else:
             raise AssertionError(f"process_proposal returned {verdict} on a launch fault "
                                  f"in {where}")
@@ -2323,8 +2972,10 @@ def _phase_node(torch, card: str) -> dict:
 #: phase_consensus: a 4-validator genesis, 3 validators live.  Validator 3,
 #: the round-0 proposer of height 3 in the rotation (addresses sorted,
 #: shifted by height - 1: validators 2, 1, 3, 0), is the dead one; validator
-#: 0's check of height 1's first proposal takes a one-shot injected launch
-#: fault.  The txs go to validator 1, not height 1's proposer.
+#: 0's first check call of height 1's first proposal takes an injected fault
+#: on every launch it makes, so that the fault outlasts the degradation
+#: ladder (a one-shot fault is retried).  The txs go to validator 1, not
+#: height 1's proposer.
 CONSENSUS_DEAD = 3
 CONSENSUS_DEAD_HEIGHT = 3
 CONSENSUS_VICTIM = 0
@@ -2336,13 +2987,13 @@ CHECK_PARTS = ("speculate", "Process")
 EXTEND_PARTS = ("Prepare",) + CHECK_PARTS
 
 
-def extend_launches(k: int) -> dict:
-    """Launches of one extend + DAH on the default (fused, dense) path at
-    square size k: the row and column RS phases, the leaf digests, and
-    sha256 for each level of the row and the column trees, then for the
-    leaves and each level of the tree over the 4k roots (the data root)."""
-    levels = (2 * k).bit_length() - 1
-    return {"rs_dense": 2, "sha256_leaf": 1, "sha256": 2 * levels + levels + 2}
+def extend_launches(k: int, mode: str = "fused") -> dict:
+    """Launches of one extend + DAH on the dense core at square size k, on
+    the ladder rung `mode` (rung_launches; fused, staged and host alike):
+    the row and column RS phases, the leaf digests, and sha256 for each
+    level of the row and the column trees, then for the leaves and each
+    level of the tree over the 4k roots (the data root)."""
+    return {name: n for name, n in rung_launches(k, mode).items() if n}
 
 
 def forest_launches(k: int) -> dict:
@@ -2356,8 +3007,11 @@ class Attribution:
     height: its App calls and its serve retention run tagged (validator,
     height, part) on their thread; `launch` (in place of _build.launch)
     counts each launch under the caller's tag and `pipelines` (in place of
-    da.eds._cached_pipeline) each extend with its square size.  One launch
-    fault can be armed for a (validator, height, parts)."""
+    da.eds._cached_pipeline) each extend with its square size and the ladder
+    rung it ran on.  One fault can be armed for a (validator, height,
+    parts): the first such App call then raises an injected fault on every
+    launch it makes, so its guarded extends walk the ladder to the floor,
+    and the ladder is re-armed when the height commits."""
 
     def __init__(self):
         self.tls = threading.local()
@@ -2369,12 +3023,22 @@ class Attribution:
         self.votes: dict = {}      # who -> [own votes broadcast]
         self.handled: dict = {}    # who -> [DeviceFault reprs out of ConsensusDriver.handle]
         self.armed = None          # (who, height, parts)
-        self.faults: list = []     # (who, height, part, kernel)
+        self.faults: list = []     # (who, height, part) of the faulted call
+        self.fault_launches = 0    # launches that raised the injected fault
+        self.ladder_at_commit = None  # degraded_state() when the faulted height committed
 
     def tagged(self, who: int, part: str, height_of, fn):
         def call(*args, **kwargs):
             prev = getattr(self.tls, "tag", None)
+            prev_firing = getattr(self.tls, "firing", False)
             tag = self.tls.tag = (who, height_of(*args), part)
+            with self.lock:
+                armed = self.armed
+                fire = armed is not None and tag[:2] == armed[:2] and tag[2] in armed[2]
+                if fire:
+                    self.armed = None
+                    self.faults.append(tag)
+            self.tls.firing = fire or prev_firing
             t0 = time.perf_counter()
             try:
                 return fn(*args, **kwargs)
@@ -2382,19 +3046,16 @@ class Attribution:
                 with self.lock:
                     self.ms[tag] = self.ms.get(tag, 0.0) + (time.perf_counter() - t0) * 1e3
                 self.tls.tag = prev
+                self.tls.firing = prev_firing
         return call
 
     def launch(self, inner):
         def launch(kernel, *args, **kwargs):
             tag = getattr(self.tls, "tag", None)
-            if tag is not None:
+            if getattr(self.tls, "firing", False):
                 with self.lock:
-                    armed, fire = self.armed, False
-                    if armed is not None and tag[:2] == armed[:2] and tag[2] in armed[2]:
-                        self.armed, fire = None, True
-                        self.faults.append(tag + (kernel,))
-                if fire:
-                    raise RuntimeError(f"injected launch fault in {kernel}")
+                    self.fault_launches += 1
+                raise RuntimeError(f"injected launch fault in {kernel}")
             inner(kernel, *args, **kwargs)
             if tag is not None:
                 with self.lock:
@@ -2403,15 +3064,15 @@ class Attribution:
         return launch
 
     def pipelines(self, inner):
-        def cached(k, *args):
-            run = inner(k, *args)
+        def cached(k, construction, config, mode, device):
+            run = inner(k, construction, config, mode, device)
 
             def counted(*a, **kw):
                 tag = getattr(self.tls, "tag", None)
                 out = run(*a, **kw)  # an extend that raised (the injected fault) is not counted
                 if tag is not None:
                     with self.lock:
-                        self.extends.setdefault(tag, []).append(k)
+                        self.extends.setdefault(tag, []).append((k, mode))
                 return out
             return counted
         cached.cache_info = inner.cache_info
@@ -2421,6 +3082,7 @@ class Attribution:
         """Tag `node`'s App calls and retention, time its commits, record its
         own votes and the DeviceFaults out of its driver's handle, and let
         its driver start no height after `stop_at`."""
+        from celestia_app_tpu_torch.chaos import degrade
         from celestia_app_tpu_torch.device import DeviceFault
         from celestia_app_tpu_torch.rpc.gossip import BroadcastVote
 
@@ -2448,6 +3110,13 @@ class Attribution:
                 with self.lock:
                     self.commits[(who, app.height)] = (time.perf_counter(),
                                                        driver.wal.fsync_ms_total)
+                    first_commit = self.faults and app.height == self.faults[0][1] and \
+                        sum(1 for (_, h) in self.commits if h == app.height) == 1
+                    if first_commit:
+                        # The ladder is process-wide and one-way: re-arm it
+                        # once the faulted height is decided.
+                        self.ladder_at_commit = degrade.degraded_state()
+                        degrade.reset_for_tests()
                 if app.height >= stop_at:
                     driver._stopped = True  # the run ends here: no next height
 
@@ -2493,9 +3162,14 @@ def phase_consensus(torch, card: str) -> dict:
     A k=128 block's worth of APP_BLOCK's txs is broadcast to validator 1,
     relayed to the others, and the cluster commits CONSENSUS_HEIGHTS
     heights under a Block.MaxBytes of half those txs' bytes, so the first
-    two heights carry them: at height 1 validator 0's proposal check takes a
-    one-shot injected launch fault, and height 3's round-0 proposer is the
-    dead validator.  Checks: both heights decide in round >= 1, the victim raised
+    two heights carry them: at height 1 validator 0's first proposal check
+    call takes an injected fault on every launch it makes, and height 3's
+    round-0 proposer is the dead validator.  The fault outlasts the
+    degradation ladder: the victim's guarded extends walk it to the floor
+    before the DeviceFault, other validators' extends may run on lower rungs
+    meanwhile (the same bytes and, on the dense core, the same launches), and
+    the ladder is re-armed once the height commits.  Checks: both heights
+    decide in round >= 1, the victim raised
     DeviceFault out of its driver's handle and prevoted nothing but nil in
     that round; every live node holds the same BlockData and app hash at
     every height, == a TestNode(device="cpu") replaying the blocks; every
@@ -2503,8 +3177,8 @@ def phase_consensus(torch, card: str) -> dict:
     deciding round; speculation hits > 0; the retained forests serve share
     proofs that verify against each data root; each validator's launches
     per height == 2 rs_dense, 1 sha256_leaf and 2·log2(2k)+log2(4k)+1
-    sha256 per extend it ran, plus 1 sha256_leaf and 2·log2(2k) sha256 per
-    retained forest.  Logs per height the wall time, the round, each
+    sha256 per extend it ran, on the rung the extend ran on, plus 1
+    sha256_leaf and 2·log2(2k) sha256 per retained forest.  Logs per height the wall time, the round, each
     validator's Prepare / Process / Finalize / Commit ms and WAL fsync ms,
     the speculation outcomes and the device busy time and idle share.
     Returns each validator's launches per height."""
@@ -2627,8 +3301,8 @@ def _phase_consensus(torch, card: str) -> dict:
             data = node._blocks_by_height[h][0]
             want: dict = {}
             for part in EXTEND_PARTS + ("retain",):
-                for k in acct.extends.get((i, h, part), []):
-                    for name, n in extend_launches(k).items():
+                for k, mode in acct.extends.get((i, h, part), []):
+                    for name, n in extend_launches(k, mode).items():
                         want[name] = want.get(name, 0) + n
             if data.txs:
                 for name, n in forest_launches(data.square_size).items():
@@ -2733,8 +3407,10 @@ def _phase_consensus(torch, card: str) -> dict:
     log(f"[{card}] consensus: {CONSENSUS_HEIGHTS} heights in {run_s:.3f} s (rounds {rounds}); "
         f"the live app hashes and BlockData agree and == a CPU TestNode's replay "
         f"({replay_s:.3f} s); every Commit record verifies; the round_journal's decided rows "
-        f"name each height's round; speculation {spec}; the injected fault {acct.faults[0]} "
-        f"raised {acct.handled[CONSENSUS_VICTIM][0][:80]} out of validator "
+        f"name each height's round; speculation {spec}; the injected fault on every launch "
+        f"of {acct.faults[0]} ({acct.fault_launches} launches raised it; the ladder "
+        f"{acct.ladder_at_commit} when the height committed, then re-armed) raised "
+        f"{acct.handled[CONSENSUS_VICTIM][0][:80]} out of validator "
         f"{CONSENSUS_VICTIM}'s handle, its prevotes in that round "
         f"{['nil' if v.is_nil else v.block_hash.hex()[:8] for v in fault_prevotes]}; "
         f"{served} share proofs from the retained forests verify; each validator's launches "
@@ -3682,6 +4358,8 @@ def main() -> int:
     del eds
     phase_stream(torch, card)
     phase_done("stream")
+    phase_faults(torch, card)
+    phase_done("faults")
     commit_counts = phase_commitments(torch, card)
     phase_done("commitments")
     app_counts = phase_app(torch, card)

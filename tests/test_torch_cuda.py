@@ -839,3 +839,55 @@ def test_gossip_cluster_on_card_equals_cpu(cuda):
             entry, _ = nodes[0].serve_cache.get(h)
             proofs = sampler.sample_batch(entry, [(0, 0), (2 * data.square_size - 1, 1)])
             assert all(p.verify(data.hash) for p in proofs)
+
+
+def test_one_shot_launch_fault_is_retried_on_the_card(cuda):
+    """A launch that fails once is retried within its rung (the ladder does
+    not move) and the roots equal the CPU port's; a fault on every launch
+    walks the ladder to the staged floor on the card and raises."""
+    from celestia_app_tpu_torch.chaos import degrade
+    from celestia_app_tpu_torch.da import ExtendedDataSquare
+
+    rng = np.random.default_rng(140)
+    ods = rng.integers(0, 256, (16, 16, 512), dtype=np.uint8)
+    want = ExtendedDataSquare.compute(ods, device="cpu").data_root()
+    inner, fired = _build.launch, []
+
+    def once(kernel, *args, **kwargs):
+        if not fired:
+            fired.append(kernel)
+            raise RuntimeError(f"injected launch fault in {kernel}")
+        return inner(kernel, *args, **kwargs)
+
+    degrade.reset_for_tests()
+    try:
+        _build.launch = once
+        assert ExtendedDataSquare.compute(ods, device=cuda).data_root() == want
+        assert fired and degrade.degraded_state() is None
+        _build.launch = lambda kernel, *a, **k: (_ for _ in ()).throw(RuntimeError("dead"))
+        with pytest.raises(RuntimeError, match="dead"):
+            ExtendedDataSquare.compute(ods, device=cuda)
+        assert degrade.degraded_state() == {"device": "host"}
+    finally:
+        _build.launch = inner
+        degrade.reset_for_tests()
+
+
+def test_parity_sentinel_matches_on_its_own_stream(cuda, monkeypatch):
+    from celestia_app_tpu_torch.da import ExtendedDataSquare
+    from celestia_app_tpu_torch.da import eds as eds_mod
+    from celestia_app_tpu_torch.trace.metrics import registry
+
+    def matches():
+        fam = registry().get("celestia_parity_checks_total")
+        return 0.0 if fam is None else sum(v for k, v in fam.samples() if k["result"] == "match")
+
+    monkeypatch.setenv("CELESTIA_PARITY_SENTINEL", "1")
+    monkeypatch.setenv("CELESTIA_PIPE_FUSED", "epi")
+    before = matches()
+    rng = np.random.default_rng(141)
+    for _ in range(3):
+        ExtendedDataSquare.compute(rng.integers(0, 256, (64, 64, 512), dtype=np.uint8),
+                                   device=cuda)
+    eds_mod.drain_parity_checks(120)
+    assert matches() == before + 3

@@ -329,6 +329,12 @@ def test_block_pipeline_forces_batch_one_and_stages_on_the_host(monkeypatch):
 
 
 def test_a_faulting_panel_raises_out_of_compute_and_the_stream(monkeypatch):
+    """A faulting panel steps the degradation ladder to the materializing
+    base (the same bytes); a fault that outlasts the ladder (every rung's
+    dispatch fails) raises out of compute and out of the stream."""
+    from celestia_app_tpu_torch import chaos
+    from celestia_app_tpu_torch.chaos import degrade
+
     monkeypatch.setenv("CELESTIA_PIPE_PANEL", "2")
     monkeypatch.setenv("CELESTIA_PIPE_FUSED", "on")
 
@@ -337,10 +343,20 @@ def test_a_faulting_panel_raises_out_of_compute_and_the_stream(monkeypatch):
 
     monkeypatch.setattr(panel, "encode_axis", boom)
     ods = _random_ods(4, seed=13)
-    before = len(journal.rows("compute"))
-    with pytest.raises(RuntimeError, match="injected panel fault"):
-        ExtendedDataSquare.compute(ods, device="cpu")
-    assert len(journal.rows("compute")) == before  # nothing computed, nothing journaled
-    with pytest.raises(RuntimeError, match="pipeline feeder failed") as info:
-        list(stream_blocks(iter([("a", ods), ("b", ods)]), 4, depth=2, device="cpu"))
-    assert "injected panel fault" in repr(info.value.__cause__)
+    try:
+        eds = ExtendedDataSquare.compute(ods, device="cpu")
+        assert journal.rows("compute")[-1]["mode"] == "fused"
+        assert degrade.degraded_state() == {"device": "fused"}
+        _assert_outputs_equal((eds._eds, eds._data_root),
+                              (_staged(ods, "vandermonde")[0], _staged(ods, "vandermonde")[3]))
+        chaos.install("seed=13,dispatch_fail=1.0,dispatch_fail_all=1")
+        before = len(journal.rows("compute"))
+        with pytest.raises(RuntimeError, match="injected dispatch_fail"):
+            ExtendedDataSquare.compute(ods, device="cpu")
+        assert len(journal.rows("compute")) == before  # nothing computed, nothing journaled
+        with pytest.raises(RuntimeError, match="pipeline feeder failed") as info:
+            list(stream_blocks(iter([("a", ods), ("b", ods)]), 4, depth=2, device="cpu"))
+        assert "injected dispatch_fail" in repr(info.value.__cause__)
+    finally:
+        chaos.uninstall()
+        degrade.reset_for_tests()

@@ -31,6 +31,7 @@ from celestia_app_tpu.kernels.fused import jit_extend_and_dah_batched
 from celestia_app_tpu.parallel import pipeline as jax_pipeline
 from celestia_app_tpu.gf.rs import RSCodec as JaxRSCodec
 from celestia_app_tpu.nmt.tree import NamespacedMerkleTree
+from celestia_app_tpu_torch.chaos import degrade
 from celestia_app_tpu_torch.constants import NAMESPACE_SIZE, PARITY_NAMESPACE_BYTES, SHARE_SIZE
 from celestia_app_tpu_torch.da import (
     DataAvailabilityHeader,
@@ -434,11 +435,21 @@ def _fail(_odss):
     raise ValueError("injected dispatch fault")
 
 
+@pytest.fixture(autouse=True)
+def _rearm_the_ladder():
+    """The degradation ladder is process-wide and one-way: a test whose
+    fault walks it to the floor must not leave later tests on that rung."""
+    yield
+    degrade.reset_for_tests()
+
+
 def test_dispatcher_fault_raises_from_submit_and_drain():
+    """A dispatch fault that outlasts the degradation ladder (every rung's
+    pipeline fails) raises from submit and drain with the cause chained."""
     k = 2
     blocks = _blocks(k, 3, seed=500)
     pipe = BlockPipeline(k, depth=1, batch=1, device="cpu")
-    pipe._pipes[1] = _fail
+    pipe._resolve_pipe = lambda mode: _fail
     t0 = time.monotonic()
     try:
         pipe.submit(blocks[0][1], 0)
