@@ -18,9 +18,12 @@ parallel/pipeline, da/repair through guarded_dispatch, and mid-panel in
 kernels/panel and kernels/panel_sharded), `device_upload`
 (parallel/pipeline), `extend_shard` (kernels/panel_sharded),
 `mempool_insert` (mempool.py), `gossip_send` (rpc/transport.py),
-`wal_torn_tail` (consensus/wal.py) and `rpc_handle` (rpc/server.py).  The
-proof seams (`proof_serve`, `proof_verify`, `proof_shard`) wait for the
-serving plane's fall-backs (ROADMAP, queue 1 item 4).
+`wal_torn_tail` (consensus/wal.py), `rpc_handle` (rpc/server.py) and the
+proof seams: `proof_serve` (serve/sampler) and `proof_verify`
+(serve/verify) retried on the card (degrade.retry_on_card), then a
+device.DeviceFault; `proof_shard` (serve/shard) down to the single-device
+read on the same card.  `active_adversary()` is the protocol adversary
+(chaos/adversary.py) of the spec's adversary keys.
 """
 
 from __future__ import annotations

@@ -355,6 +355,29 @@ def guarded_dispatch(resolve, x, *, refresh=None,
             attempt += 1
 
 
+def retry_on_card(seam: str, fn, *, sleep=time.sleep):
+    """`fn()` retried on the card: up to DEFAULT_THRESHOLD retries after a
+    failure, with the ladder's backoff, each ticking
+    `celestia_recoveries_total{seam, outcome="retried"}`; past the last
+    retry the failure raises as device.DeviceFault.  The proof seams'
+    rule (serve/sampler `proof.serve`, serve/verify `proof.verify`),
+    where the JAX package answers the whole queue on the host instead:
+    in the port no fault of the card is answered from the CPU."""
+    from celestia_app_tpu_torch.device import DeviceFault
+
+    attempt = 0
+    while True:
+        try:
+            return fn()
+        except Exception as e:  # chaos-ok: retried, then a DeviceFault
+            if attempt >= DEFAULT_THRESHOLD:
+                raise DeviceFault(f"{seam} failed on the device after {attempt} retries: "
+                                  f"{e!r}") from e
+            _recoveries().inc(seam=seam, outcome="retried")
+            sleep(min(BACKOFF_BASE_S * (2 ** attempt), BACKOFF_CAP_S))
+            attempt += 1
+
+
 def _env_base_mode() -> str:
     """The env-selected base mode, WITHOUT the ladder applied (degrade()
     must step relative to it, not to its own output).  One parse lives in

@@ -44,17 +44,16 @@ gossip_drop=0.1,wal_torn_tail=1,rpc_slow_ms=100"
     rpc_fail=<p>          request fails with an injected server error
     mempool_drop=<p>      admission transiently rejects
     mempool_slow_ms=<ms>  [mempool_slow=<p>]
-    proof_fail=<p>        batched proof dispatch raises (host fallback
-                          must answer bit-identically)
+    proof_fail=<p>        batched proof dispatch raises (retried on the
+                          card, then device.DeviceFault; never a host
+                          answer)
     proof_slow_ms=<ms>    [proof_slow=<p>] proof dispatch stalls
     verify_fail=<p>       batched proof VERIFICATION raises (serve/verify
-                          must fall back to the per-proof host verify
-                          with an identical accept/reject vector)
-    shard_fail=<p>        SHARDED forest gather raises (serve/shard):
-                          the gather degrades to the single-device
-                          batched path, then — compounded with
-                          proof_fail — to the host rung, every rung
-                          bit-identical
+                          retries on the card, then DeviceFault)
+    shard_fail=<p>        SHARDED forest or share gather raises
+                          (serve/shard): the gather degrades to the
+                          single-device read on the same card, with the
+                          same bytes
     extend_shard_fail=<p> SHARDED extend+DAH dispatch raises mid-
                           collective (kernels/panel_sharded): the
                           ladder walks sharded_panel -> panel (the
@@ -84,11 +83,8 @@ writes a `chaos_injection` trace row, so a soak can print per-seam
 injection counts and a test can assert a seam actually fired.
 
 The port's copy of celestia_app_tpu/chaos/spec.py, whole: the same spec
-and seed give the same decisions at every seam.  One difference: the
-protocol adversary (celestia_app_tpu/chaos/adversary.py) acts on the serve
-API, which the port does not have yet, so `adversary()` raises
-NotImplementedError for a spec that sets an adversary key instead of
-running an honest serve path under it (ROADMAP, queue 1).
+and seed give the same decisions at every seam, and `adversary()` builds the
+protocol adversary (chaos/adversary.py) of the spec's adversary keys.
 """
 
 from __future__ import annotations
@@ -201,12 +197,9 @@ class ChaosInjector:
         key is absent/zero (the honest fast path)."""
         with self._lock:
             if not self._adversary_built:
-                if (self._p("withhold_frac") > 0 or int(self._p("malform_shares")) > 0
-                        or self._p("wrong_root") > 0):
-                    raise NotImplementedError(
-                        "chaos: the protocol adversary (withhold_frac, malform_shares, "
-                        "wrong_root) acts on the serve API, which the port does not have yet"
-                    )
+                from celestia_app_tpu_torch.chaos.adversary import Adversary
+
+                self._adversary = Adversary.from_params(self.params)
                 self._adversary_built = True
             return self._adversary
 
@@ -319,29 +312,26 @@ class ChaosInjector:
 
     def proof_serve(self) -> None:
         """Stall and/or fail one BATCHED proof dispatch (serve/sampler):
-        the sampler must absorb the failure by answering the batch on the
-        pure-host path with bit-identical proof bytes — the serve plane's
-        analog of the extend pipeline's fused->staged seam."""
+        the sampler retries the batch on the card (chaos/degrade.
+        retry_on_card) and raises device.DeviceFault past the last retry;
+        it never answers from the host."""
         self._stall("proof.serve", "proof_slow_ms", "proof_slow")
         if self._fire("proof.serve", "proof_fail"):
             self._count("proof.serve", "proof_fail")
             raise ChaosInjected("proof.serve", "proof_fail")
 
     def proof_verify(self) -> None:
-        """Fail one BATCHED proof-verification dispatch (serve/verify):
-        the verifier must absorb the failure by re-deciding the whole
-        queue on the per-proof host path with an IDENTICAL accept/reject
-        vector — the read side's verify twin of the proof.serve seam."""
+        """Fail one BATCHED proof-verification or leaf-digest dispatch
+        (serve/verify): retried on the card like proof.serve, then a
+        device.DeviceFault."""
         if self._fire("proof.verify", "verify_fail"):
             self._count("proof.verify", "verify_fail")
             raise ChaosInjected("proof.verify", "verify_fail")
 
     def proof_shard(self) -> None:
-        """Fail one SHARDED forest gather (serve/shard): the gather must
-        degrade to the single-device batched path — and, when proof_fail
-        compounds the injection, on down to the host rung — with
-        bit-identical proof bytes at every rung (the read-side ladder's
-        top seam)."""
+        """Fail one SHARDED forest or share gather (serve/shard): the
+        gather degrades to the single-device read on the same card, with
+        the same bytes (the read side's ladder's top seam)."""
         if self._fire("proof.shard", "shard_fail"):
             self._count("proof.shard", "shard_fail")
             raise ChaosInjected("proof.shard", "shard_fail")

@@ -36,10 +36,10 @@ the availability mask advances only after a sweep succeeded.  Survivors are
 authoritative: a set that is not one codeword is rejected (RootMismatch),
 as is a square whose roots differ from `dah`; each rejection is an
 adversary detection (`celestia_da_detections_total{kind=
-"root_mismatch"}`) and fires the `root_mismatch` flight-recorder trigger.
-The healing loop the JAX package also feeds (serve/heal.note_detection)
-comes with the serving plane.  The recover matrices' bytes are the
-ledger owner `repair_recover_cache`.
+"root_mismatch"}`, chaos/adversary.detections), fires the `root_mismatch`
+flight-recorder trigger and, when the height is known, enqueues a heal
+(serve/heal.note_detection).  The recover matrices' bytes are the ledger
+owner `repair_recover_cache`.
 """
 
 from __future__ import annotations
@@ -74,28 +74,20 @@ def repair_sweep_mode() -> str:
     return "grouped" if os.environ.get("CELESTIA_REPAIR_SWEEP", "") == "grouped" else "batched"
 
 
-def _detections():
-    """The adversary-detection counter of the JAX package's
-    chaos/adversary.detections (its name and help text)."""
-    from celestia_app_tpu_torch.trace.metrics import registry
-
-    return registry().counter(
-        "celestia_da_detections_total",
-        "data-availability attacks detected, by kind (root_mismatch: "
-        "repair rejected an inconsistent survivor set or a wrong DAH; "
-        "withheld / bad_proof: serve-plane sampler detections)",
-    )
-
-
 def _root_mismatch_detected(reason: str, height: int | None = None, **context) -> None:
     """Every repair rejection is an adversary-detection event: tick the
     detection counter and black-box the moment (the survivor set and the
-    DAH that disagreed are in the trace tables right now)."""
+    DAH that disagreed are in the trace tables right now), and hand the
+    height to the healing engine that owns it."""
+    from celestia_app_tpu_torch.chaos.adversary import detections
     from celestia_app_tpu_torch.trace.flight_recorder import note_trigger
 
-    _detections().inc(kind="root_mismatch")
+    detections().inc(kind="root_mismatch")
     if height is not None:
         context["height"] = height
+        from celestia_app_tpu_torch.serve import heal
+
+        heal.note_detection("root_mismatch", height)
     note_trigger("root_mismatch", reason=reason, **context)
 
 

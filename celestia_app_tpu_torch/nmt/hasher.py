@@ -52,3 +52,11 @@ class NmtHasher:
     def empty_root() -> bytes:
         zero = b"\x00" * NAMESPACE_SIZE
         return zero + zero + hashlib.sha256(b"").digest()
+
+    @staticmethod
+    def min_namespace(node: bytes) -> bytes:
+        return node[:NAMESPACE_SIZE]
+
+    @staticmethod
+    def max_namespace(node: bytes) -> bytes:
+        return node[NAMESPACE_SIZE:2 * NAMESPACE_SIZE]

@@ -5,8 +5,9 @@ proof path uses them (pkg/wrapper/nmt_wrapper.go:127,
 pkg/proof/proof.go:151-202): the proof carries the subtree roots beside the
 range in left-to-right DFS order; verification recomputes the root from the
 claimed leaves and those nodes, carrying namespace ranges with the
-ignore-max rule.  The range-proof half of celestia_app_tpu/nmt/proof.py;
-multiproofs and namespace proofs are not ported yet.
+ignore-max rule.  The port's copy of celestia_app_tpu/nmt/proof.py, whole:
+range proofs, the deduped multiproofs of the attestation payload, and
+namespace inclusion and absence proofs.
 """
 
 from __future__ import annotations
@@ -126,3 +127,179 @@ def _verify_digests(root: bytes, proof: NmtRangeProof, leaf_digests: list[bytes]
 def verify_range(root: bytes, proof: NmtRangeProof, leaf_ndata: list[bytes]) -> bool:
     """Verify leaves (ns-prefixed raw data, in order) against a 90-byte root."""
     return _verify_digests(root, proof, [NmtHasher.hash_leaf(nd) for nd in leaf_ndata])
+
+
+# --- deduped multiproofs (the attestation plane's wire unit) ---------------
+
+
+@dataclass(frozen=True)
+class NmtMultiProof:
+    """Inclusion proof for a SET of leaf ranges of one NMT.
+
+    s ranges of one tree share most of their upper path nodes; here each
+    shared node is serialized ONCE (`nodes`, first-use order) and every
+    range consumes its nodes by index (`node_refs`, the exact DFS order
+    `prove_range` emits) — so reconstructing any range's NmtRangeProof
+    is pure indexing and byte-identical to proving it alone, while the
+    wire stops paying s x for shared interior nodes."""
+
+    ranges: tuple[tuple[int, int], ...]  # sorted, disjoint [start, end)
+    nodes: tuple[bytes, ...]  # unique 90-byte digests, first-use order
+    node_refs: tuple[tuple[int, ...], ...]  # per range, DFS order
+    total: int  # leaf count of the proven tree
+
+
+def multiproof_from_levels(
+    levels: list[list[bytes]], ranges
+) -> NmtMultiProof:
+    """Deduped proof for sorted disjoint `ranges` from precomputed digest
+    levels (leaf level first; power-of-two trees).  Deterministic: node
+    table order is first use, walking ranges in their sorted order and
+    each range's nodes in DFS order."""
+    total = len(levels[0])
+    rs = tuple((int(s), int(e)) for s, e in ranges)
+    prev_end = 0
+    for s, e in rs:
+        if not 0 <= s < e <= total:
+            raise ValueError(f"invalid range [{s},{e}) of {total} leaves")
+        if s < prev_end:
+            raise ValueError(
+                f"ranges must be sorted and disjoint (range [{s},{e}) "
+                f"overlaps or precedes end {prev_end})"
+            )
+        prev_end = e
+    if not rs:
+        raise ValueError("multiproof needs at least one range")
+    table: dict[tuple[int, int], int] = {}
+    nodes: list[bytes] = []
+    refs: list[tuple[int, ...]] = []
+    for s, e in rs:
+        rr: list[int] = []
+        for coord in range_proof_node_coords(total, s, e):
+            j = table.get(coord)
+            if j is None:
+                j = table[coord] = len(nodes)
+                lvl, idx = coord
+                nodes.append(levels[lvl][idx])
+            rr.append(j)
+        refs.append(tuple(rr))
+    return NmtMultiProof(rs, tuple(nodes), tuple(refs), total)
+
+
+def split_multiproof(mp: NmtMultiProof) -> list[NmtRangeProof]:
+    """Per-range NmtRangeProofs reconstructed from the deduped table —
+    byte-identical to `prove_range` of each range alone.  Raises
+    IndexError on out-of-table refs (attacker-shaped input)."""
+    return [
+        NmtRangeProof(s, e, tuple(mp.nodes[j] for j in refs), mp.total)
+        for (s, e), refs in zip(mp.ranges, mp.node_refs)
+    ]
+
+
+def verify_multiproof(
+    root: bytes, mp: NmtMultiProof, leaf_ndata_per_range: list[list[bytes]]
+) -> bool:
+    """Host verification: every range's leaves (ns-prefixed raw data)
+    verify against the 90-byte root.  The batched path reconstructs the
+    same per-range proofs and decides them in one device program
+    (serve/verify.py)."""
+    if len(leaf_ndata_per_range) != len(mp.ranges):
+        return False
+    if len(mp.node_refs) != len(mp.ranges):
+        return False
+    try:
+        parts = split_multiproof(mp)
+    except IndexError:
+        return False
+    return all(
+        verify_range(root, proof, leaves)
+        for proof, leaves in zip(parts, leaf_ndata_per_range)
+    )
+
+
+# --- namespace proofs (nmt ProveNamespace / VerifyNamespace parity) --------
+
+
+def prove_namespace(
+    tree: NamespacedMerkleTree, namespace: bytes
+) -> tuple[NmtRangeProof, list[bytes]]:
+    """Prove all leaves of `namespace` (inclusion), or its absence.
+
+    Returns (proof, leaf_ndata).  Empty leaf list = absence proof: the proof
+    covers the single leaf at the namespace's would-be position (verified by
+    digest), mirroring the nmt library's absence proofs.
+    """
+    ns_list = [l[: len(namespace)] for l in tree._leaves]
+    n = len(ns_list)
+    start = next((i for i, ns in enumerate(ns_list) if ns >= namespace), n)
+    end = next((i for i, ns in enumerate(ns_list) if ns > namespace), n)
+    if start < end:  # present
+        return prove_range(tree, start, end), list(tree._leaves[start:end])
+    # Absent: prove the leaf at the insertion position (clamped for
+    # beyond-the-last-namespace queries).
+    pos = min(start, n - 1)
+    return prove_range(tree, pos, pos + 1), []
+
+
+def verify_namespace(
+    root: bytes,
+    proof: NmtRangeProof,
+    namespace: bytes,
+    leaf_ndata: list[bytes],
+    absence_leaf_digest: bytes | None = None,
+) -> bool:
+    """Verify a namespace proof: inclusion completeness or absence.
+
+    Inclusion: every proven leaf carries `namespace`, and the proof's
+    sibling nodes show nothing with that namespace exists outside the range
+    (left siblings' max < ns, right siblings' min > ns).  Absence: the
+    single covered leaf digest has a different namespace and the same
+    completeness bounds hold.
+    """
+    size = len(namespace)
+    if leaf_ndata:
+        if any(l[:size] != namespace for l in leaf_ndata):
+            return False
+        if not verify_range(root, proof, leaf_ndata):
+            return False
+    else:
+        if absence_leaf_digest is None:
+            return False
+        if proof.end - proof.start != 1:
+            return False
+        leaf_min = NmtHasher.min_namespace(absence_leaf_digest)[:size]
+        if leaf_min == namespace:
+            return False  # the leaf IS the namespace: not an absence proof
+        if not _verify_digests(root, proof, [absence_leaf_digest]):
+            return False
+        # For an interior absence the covered leaf must sit past the
+        # namespace; a leaf below it only proves absence if it is the last
+        # leaf of the tree.
+        if leaf_min < namespace and proof.end != proof.total:
+            return False
+
+    # Completeness: no leaf with `namespace` hidden inside a sibling node.
+    it = iter(proof.nodes)
+
+    def walk(lo: int, hi: int) -> None:
+        if hi <= proof.start:
+            node = next(it)
+            if NmtHasher.max_namespace(node)[:size] >= namespace:
+                raise ValueError("namespace leaks left of the proven range")
+            return
+        if lo >= proof.end:
+            node = next(it)
+            if NmtHasher.min_namespace(node)[:size] <= namespace:
+                raise ValueError("namespace leaks right of the proven range")
+            return
+        if hi - lo == 1:
+            return
+        sp = split_point(hi - lo)
+        walk(lo, lo + sp)
+        walk(lo + sp, hi)
+
+    try:
+        walk(0, proof.total)
+    except (ValueError, StopIteration):
+        return False
+    return True

@@ -54,9 +54,10 @@ throttle counts) — see trace/exposition.py and trace/square_journal.py.
 
 The port's copy of celestia_app_tpu/qos.py, whole: the same parsing,
 buckets, refusals and payloads on the same clock.  The port enforces the
-write-path gate (`admit_tx`, from mempool.py); its read-path gate
-(`admit_proof`) has no caller until the sampler's `proof_rate` seam and
-the HTTP planes come over (ROADMAP, queue 1 items 3 and 4).
+write-path gate (`admit_tx`, from mempool.py) and the read-path gate
+(`admit_proof`, from serve/sampler.py's per-sample gate and
+serve/api.DasProvider's namespace queries); the HTTP faces (/healthz,
+/namespaces) come with the exposition (ROADMAP, queue 1 item 4).
 """
 
 from __future__ import annotations

@@ -19,17 +19,21 @@ the HTTP boundary (rpc/codec.py).
 The port's copy of celestia_app_tpu/rpc/server.py on the port's TestNode:
 `ServingNode(..., device=None)` runs its App, its serve cache and its proof
 queries on `device` (None means CUDA and raises without a card; "cpu" runs
-the plain kernel versions).  Left out until their planes are ported
-(ROADMAP, queue 1):
-  * the DasProvider RPCs (`das_provider`, `rpc_get_share_proof`,
-    `rpc_get_shares_by_namespace`, `rpc_get_attestation`), which need
-    serve/api.py; the retained forests are read through `serve_cache`;
+the plain kernel versions).  The DAS serving plane: `das_provider()` (a
+serve/api.DasProvider over the node's serve cache, rebuilding an evicted
+height from the block store), the RPCs `get_share_proof`,
+`get_shares_by_namespace` and `get_attestation`, and in NodeServer the
+provider and, under $CELESTIA_HEAL=1, a serve/heal.HealingEngine started
+with the server and closed in `stop`.  A refusal is a JSON-RPC error -32000
+naming it (`ShareWithheld: ...`, `BadProofDetected: ...`,
+`HealingInProgress: ...`), as in JAX.  Left out until their planes are
+ported (ROADMAP, queue 1):
   * state sync (`_take_snapshot`, `rpc_snapshots`, `rpc_snapshot_chunk`,
     `state_sync_from`): a nonzero `snapshot_interval` raises
     NotImplementedError;
   * the observability GET surface and its /healthz provider
-    (`health_snapshot`), the DAS mount and the healer of NodeServer, which
-    need trace/exposition.py and serve/heal.py.
+    (`health_snapshot`), and the exposition's DAS mount
+    (`register_das_provider`), which need trace/exposition.py.
 Two deliberate differences, both because a device fault must stay visible:
 the commit hook's serve retention lets a device.DeviceFault out, after the
 block store and the Commit record are written, where the JAX node prints
@@ -119,6 +123,7 @@ class ServingNode(TestNode):
         # clients sample against.  Built lazily so a node that never
         # serves proofs pays nothing.
         self._serve_cache = None
+        self._das_provider = None
         # Serializes whole produce+replicate rounds so replicated heights
         # reach peers in order even with concurrent produce callers.
         self._produce_lock = threading.Lock()
@@ -340,6 +345,16 @@ class ServingNode(TestNode):
             self._serve_cache = ForestCache(device=self.app.device)
         return self._serve_cache
 
+    def das_provider(self):
+        """This node's DasProvider (serve/api.py): the cache-backed payload
+        builder every plane serves; a miss rebuilds from the block store,
+        so an evicted height is slower, never unservable."""
+        if self._das_provider is None:
+            from celestia_app_tpu_torch.serve.api import DasProvider
+
+            self._das_provider = DasProvider(cache=self.serve_cache, rebuild=self._rebuild_eds)
+        return self._das_provider
+
     def _retain_for_serving(self, height: int, data: BlockData) -> None:
         """Admit the committed height's EDS + forests to the serve cache.
 
@@ -417,6 +432,37 @@ class ServingNode(TestNode):
         if entry is None:
             return None
         return self._eds_for_block(entry[0])
+
+    def rpc_get_share_proof(self, height: int, row: int, col: int, axis: str = "row") -> dict:
+        """GetShareProof — one DAS sample of the EXTENDED square (parity
+        quadrants included), proven to the height's committed DAH data
+        root through the row tree or (axis="col") the column tree."""
+        from celestia_app_tpu_torch.serve.api import count_served
+
+        payload = self.das_provider().share_proof_payload(int(height), int(row), int(col),
+                                                          axis=axis)
+        count_served("jsonrpc", "share_proof", payload)
+        return payload
+
+    def rpc_get_shares_by_namespace(self, height: int, namespace: str) -> dict:
+        """GetSharesByNamespace — every share of a namespace with its
+        multi-row inclusion proof (namespace as 29-byte hex)."""
+        from celestia_app_tpu_torch.serve.api import count_served
+
+        payload = self.das_provider().shares_payload(int(height), namespace)
+        count_served("jsonrpc", "shares", payload)
+        return payload
+
+    def rpc_get_attestation(self, height: int, samples: str) -> dict:
+        """GetAttestation — a deduped multiproof for a SET of samples
+        (`samples` = comma-joined row:col[:axis]): shared NMT and root
+        nodes serialized once, per-sample proofs reconstructable by
+        indexing (rpc/codec.share_proofs_from_attestation)."""
+        from celestia_app_tpu_torch.serve.api import count_served
+
+        payload = self.das_provider().attestation_payload(int(height), samples)
+        count_served("jsonrpc", "attestation", payload)
+        return payload
 
     def _produce_and_replicate(self, produce_time_ns: int | None = None):
         """One voting round per height (celestia-core's consensus shape,
@@ -1264,11 +1310,25 @@ class NodeServer:
         self.url = f"http://{host}:{self.port}"
         self._threads: list[threading.Thread] = []
         self._stop = threading.Event()
+        # The node's DAS surface and, under $CELESTIA_HEAL=1, the
+        # detect -> repair -> re-serve loop (serve/heal.py): detections on
+        # this node's sampler start a repair and a root-verified
+        # re-admission on the healer's thread.
+        self._das_provider = None
+        self._healer = None
+        if hasattr(node, "das_provider"):
+            from celestia_app_tpu_torch.serve import heal
+
+            self._das_provider = node.das_provider()
+            if heal.heal_enabled():
+                self._healer = heal.HealingEngine(self._das_provider, name=f"node:{self.port}")
 
     def start(self, block_interval_s: float | None = None):
         t = threading.Thread(target=self.httpd.serve_forever, daemon=True)
         t.start()
         self._threads.append(t)
+        if self._healer is not None:
+            self._healer.start()
         if block_interval_s is not None:
             p = threading.Thread(
                 target=self._proposer_loop, args=(block_interval_s,), daemon=True
@@ -1288,10 +1348,12 @@ class NodeServer:
                 print(f"proposer loop error: {e}", file=sys.stderr)
 
     def stop(self):
-        """Stop the driver's timers, the HTTP server (waiting for requests
-        in flight), the proposer loop and the gossip pool, in that order:
-        no thread of this server outlives it."""
+        """Stop the healer, the driver's timers, the HTTP server (waiting for
+        requests in flight), the proposer loop and the gossip pool, in that
+        order: no thread of this server outlives it."""
         self._stop.set()
+        if self._healer is not None:
+            self._healer.close()
         driver = getattr(self.node, "consensus_driver", None)
         if driver is not None:
             driver.stop()

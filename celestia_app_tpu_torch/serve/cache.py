@@ -20,13 +20,25 @@ both forests are row-partitioned over a serve mesh and gathers read each
 row on its shard; an EDS that arrives row-sharded (the sharded extend
 lowerings) stays so, and share reads go to the owning shard.
 
-The port of celestia_app_tpu/serve/cache.py (CachedForest, ForestCache).
+Admissions, re-admissions (`readmit`, the healing loop's: serve/heal.py)
+and the heights they push down a tier write `forest_cache` trace rows (the
+height timeline's retention signal); evictions tick
+celestia_serve_cache_evictions_total{tier}, residency is the gauge
+celestia_serve_cache_resident{tier}, lookups tick
+celestia_serve_cache_{hits,misses}_total, and the device-tier bytes of every
+live cache are the device ledger's owner `serve_forest_cache`.
+
+The port of celestia_app_tpu/serve/cache.py, whole.  `readmit` waits for its
+forest build on the card before it publishes the entry, since the healing
+loop builds on its own thread while the block path extends.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import time
+import weakref
 from collections import OrderedDict
 
 import numpy as np
@@ -37,6 +49,7 @@ from celestia_app_tpu_torch.constants import SHARE_SIZE
 from celestia_app_tpu_torch.device import resolve_device
 # `forest` is read from here by serve/shard.build_entry, the admission seam.
 from celestia_app_tpu_torch.kernels.fused import forest, forest_level_layout  # noqa: F401
+from celestia_app_tpu_torch.trace.device_ledger import register_owner as _register_owner
 
 
 def serve_heights() -> int:
@@ -56,6 +69,32 @@ def spill_heights() -> int:
         return int(raw) if raw else 2 * serve_heights()
     except ValueError:
         return 2 * serve_heights()
+
+
+def _nbytes(t) -> int:
+    """Bytes of a tensor, or of every block of a row-sharded one."""
+    return sum(int(b.numel()) * b.element_size() for b in getattr(t, "blocks", (t,)))
+
+
+def _caches_owned_bytes() -> int:
+    """Device-tier bytes held by every live ForestCache: the retained EDS
+    and both flat forests of each resident height.  Spilled (host-tier)
+    entries are host memory, reported elsewhere."""
+    total = 0
+    for cache in list(_ALL_CACHES):
+        with cache._lock:
+            entries = list(cache._device.values())
+        for e in entries:
+            try:
+                total += _nbytes(e.eds._eds) + _nbytes(e.row_flat) + _nbytes(e.col_flat)
+            except Exception:  # chaos-ok: entry mid-spill or deleted
+                continue
+    return total
+
+
+_ALL_CACHES: "weakref.WeakSet[ForestCache]" = weakref.WeakSet()
+
+_register_owner("serve_forest_cache", _caches_owned_bytes)
 
 
 class _ForestLineTree:
@@ -95,6 +134,14 @@ class CachedForest:
         self.k = eds.k
         self.eds = eds
         self.device_resident = True
+        # Provenance for the healing loop (serve/heal.py): `owner` is the
+        # admitting ForestCache (a detection goes to the engine whose
+        # cache owns the sampled entry); `healed` marks a height recovered
+        # by repair and root-verified here, served without the adversary's
+        # withholding and tampering (the adversary sits between this node
+        # and the network, not between the node and its verified store).
+        self.owner = None
+        self.healed = False
         self.row_flat = row_flat  # (N, 90): every row-tree level, flat
         self.col_flat = col_flat
         # Share sharding: an EDS that arrived row-sharded over an extend
@@ -118,6 +165,13 @@ class CachedForest:
     def gather(self, axis: str, flat_indices) -> np.ndarray:
         """(len(flat_indices), 90) node bytes in one gather."""
         return _take(self.row_flat if axis == "row" else self.col_flat, flat_indices)
+
+    def gather_device(self, axis: str, flat_indices) -> torch.Tensor:
+        """The rows of `gather`, left where the forest lies (the healing
+        loop's survivor check compares them on the card)."""
+        flat = self.row_flat if axis == "row" else self.col_flat
+        index = torch.as_tensor(np.asarray(flat_indices, dtype=np.int64)).to(flat.device)
+        return flat.index_select(0, index)
 
     def gather_shares(self, coords) -> np.ndarray:
         """(B, SHARE_SIZE) shares of [(row, col), ...] in one gather.  A
@@ -181,10 +235,20 @@ class ForestCache:
         # One build per height: concurrent puts of one height wait for the
         # first instead of each building (and holding) a forest.
         self._building: dict[int, threading.Lock] = {}
+        _ALL_CACHES.add(self)
 
     def _capacity(self) -> tuple[int, int]:
         return (self._heights if self._heights is not None else serve_heights(),
                 self._spill if self._spill is not None else spill_heights())
+
+    def _build(self, height: int, eds) -> tuple[CachedForest, float]:
+        """(entry, build ms): serve/shard.build_entry, owned by this cache."""
+        from celestia_app_tpu_torch.serve.shard import build_entry
+
+        t0 = time.perf_counter()
+        entry = build_entry(height, eds, self.device, self.mesh)
+        entry.owner = self
+        return entry, (time.perf_counter() - t0) * 1e3
 
     def put(self, height: int, eds) -> CachedForest | None:
         """Retain one height: build its forest (serve/shard.build_entry:
@@ -207,19 +271,23 @@ class ForestCache:
                     if existing is not None:  # a concurrent put built it
                         self._device.move_to_end(height)
                         return existing
-                from celestia_app_tpu_torch.serve.shard import build_entry
-
-                entry = build_entry(height, eds, self.device, self.mesh)
-                self._admit(entry, cap, spill_cap)
-                return entry
+                entry, build_ms = self._build(height, eds)
+                # Admitted inside the gate: the next put through it must
+                # find the entry resident.
+                spilled, dropped = self._admit(entry, cap, spill_cap)
         finally:
             with self._lock:
                 self._building.pop(height, None)
+        self._settle("admit", height, build_ms, spilled, dropped)
+        return entry
 
-    def _admit(self, entry: CachedForest, cap: int, spill_cap: int) -> None:
+    def _admit(self, entry: CachedForest, cap: int, spill_cap: int
+               ) -> tuple[list[int], list[int]]:
         """Insert `entry` at the device tier's MRU end (replacing a resident
         entry of its height), spill device overflow to the host tier and
-        drop host overflow."""
+        drop host overflow; returns (spilled heights, dropped heights)."""
+        spilled: list[int] = []
+        dropped: list[int] = []
         with self._lock:
             self._host.pop(entry.height, None)
             self._device[entry.height] = entry
@@ -229,23 +297,151 @@ class ForestCache:
                 self._last_eviction = h
                 old.spill()
                 self._host[h] = old
+                spilled.append(h)
             while len(self._host) > spill_cap:
-                self._host.popitem(last=False)
+                h, _old = self._host.popitem(last=False)
+                dropped.append(h)
+        return spilled, dropped
+
+    def _settle(self, event: str, height: int, build_ms: float, spilled: list[int],
+                dropped: list[int]) -> None:
+        """What every (re-)admission does after it: trace rows, eviction
+        counts, the residency gauge, and the adversary's memo of the
+        height dropped."""
+        self._trace_admission(event, height, build_ms, spilled, dropped)
+        self._count_evictions(len(spilled), len(dropped))
+        self._publish_residency()
+        self._invalidate_tamper_memo(height)
+
+    def readmit(self, height: int, eds, *, healed: bool = True) -> CachedForest | None:
+        """Repair-driven re-admission: install the RECOVERED (already
+        root-verified: serve/heal.py's verify phase gates this call) square
+        of a height, replacing whatever is resident.
+
+        Rides the same per-height gate as `put`, so a heal racing a rebuild
+        on a miss coalesces: when the gate opens on an entry already serving
+        the same data root, that entry is KEPT (one forest build in all; its
+        retention pins untouched) and only marked healed.  Either way the
+        adversary's tampered view of the height is dropped, so the recovery
+        shows on the next request.  The forest build is waited for on the
+        card before the entry is published."""
+        cap, spill_cap = self._capacity()
+        if cap <= 0:  # retention disabled: nothing to re-admit into
+            self._invalidate_tamper_memo(height)
+            return None
+        with self._lock:
+            gate = self._building.setdefault(height, threading.Lock())
+        root = eds.data_root()
+        try:
+            with gate:
+                with self._lock:
+                    existing = self._device.get(height) or self._host.get(height)
+                if existing is not None and existing.data_root == root:
+                    entry = existing
+                    entry.healed = entry.healed or healed
+                    spilled, dropped = [], []
+                    build_ms = 0.0
+                    with self._lock:
+                        for store in (self._device, self._host):
+                            if height in store:
+                                store.move_to_end(height)
+                else:
+                    entry, build_ms = self._build(height, eds)
+                    _synchronize(self.device)
+                    entry.healed = healed
+                    spilled, dropped = self._admit(entry, cap, spill_cap)
+        finally:
+            with self._lock:
+                self._building.pop(height, None)
+        self._settle("readmit", height, build_ms, spilled, dropped)
+        return entry
+
+    @staticmethod
+    def _invalidate_tamper_memo(height: int) -> None:
+        """Every (re-)admission drops the adversary's memoized tampered view
+        of the height: a re-admitted square is new state, and serving the
+        stale view would hide the recovery.  Never raises."""
+        try:
+            from celestia_app_tpu_torch import chaos
+
+            adv = chaos.active_adversary()
+            if adv is not None:
+                adv.invalidate_tampered(height)
+        except Exception:  # chaos-ok: admission must not depend on chaos state
+            pass
+
+    @staticmethod
+    def _trace_admission(event: str, height: int, build_ms: float,
+                         spilled: list[int], dropped: list[int]) -> None:
+        """One `forest_cache` row per admission (with the forest build's
+        ms) and one per height it pushed down a tier: the height timeline's
+        retention signal (trace/timeline.py)."""
+        from celestia_app_tpu_torch.trace.tracer import traced
+
+        tracer = traced()
+        tracer.write("forest_cache", event=event, height=height,
+                     forest_build_ms=round(build_ms, 3))
+        for h in spilled:
+            tracer.write("forest_cache", event="spill", height=h)
+        for h in dropped:
+            tracer.write("forest_cache", event="drop", height=h)
+
+    def _count_evictions(self, spilled: int, dropped: int) -> None:
+        if not (spilled or dropped):
+            return
+        from celestia_app_tpu_torch.trace.metrics import registry
+
+        ev = registry().counter(
+            "celestia_serve_cache_evictions_total",
+            "serve-cache evictions by destination tier "
+            "(device->host spill; host->dropped)",
+        )
+        if spilled:
+            ev.inc(spilled, tier="host")
+        if dropped:
+            ev.inc(dropped, tier="dropped")
+
+    def _publish_residency(self) -> None:
+        from celestia_app_tpu_torch.trace.metrics import registry
+
+        gauge = registry().gauge(
+            "celestia_serve_cache_resident",
+            "heights resident in the serve cache, by tier",
+        )
+        with self._lock:
+            gauge.set(len(self._device), tier="device")
+            gauge.set(len(self._host), tier="host")
 
     def get(self, height: int) -> tuple[CachedForest | None, str]:
         """(entry, tier) where tier is "device", "host" or "miss"."""
+        from celestia_app_tpu_torch.trace.metrics import registry
+
+        entry, tier = None, "miss"
         with self._lock:
-            for tier, store in (("device", self._device), ("host", self._host)):
+            for name, store in (("device", self._device), ("host", self._host)):
                 entry = store.get(height)
                 if entry is not None:
                     store.move_to_end(height)
-                    self._hits[tier] += 1
-                    return entry, tier
-            self._misses += 1
-            return None, "miss"
+                    self._hits[name] += 1
+                    tier = name
+                    break
+            else:
+                self._misses += 1
+        if entry is not None:
+            registry().counter(
+                "celestia_serve_cache_hits_total",
+                "serve-cache lookups answered, by tier",
+            ).inc(tier=tier)
+        else:
+            registry().counter(
+                "celestia_serve_cache_misses_total",
+                "serve-cache lookups that fell through to a rebuild",
+            ).inc()
+        return entry, tier
 
     def contains(self, height: int) -> bool:
-        """Residency on any tier, without touching the hit counts."""
+        """Residency on any tier, without touching the hit counts (the
+        healing engine's "is this height mine" check)."""
         with self._lock:
             return height in self._device or height in self._host
 
@@ -270,3 +466,17 @@ class ForestCache:
             }
         out["mesh"] = mesh_stats(entries)
         return out
+
+    def reset_for_tests(self) -> None:
+        with self._lock:
+            self._device.clear()
+            self._host.clear()
+            self._hits = {"device": 0, "host": 0}
+            self._misses = 0
+            self._last_eviction = None
+
+
+def _synchronize(device: torch.device) -> None:
+    """Wait for the work queued on `device` (nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

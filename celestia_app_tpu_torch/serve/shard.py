@@ -17,10 +17,16 @@ row-wise over a 1-D "serve" mesh (parallel/mesh.py):
     gathered onto one device.
 
 A gather returns the same rows whatever the layout, so the sharded plane
-is byte-identical to the single-device one.  Not ported: the JAX read-side
-ladder (sharded gather -> single device -> host, the chaos seam
-proof.shard) and the Prometheus counters and gauge; a sharded fault
-raises to the caller.
+is byte-identical to the single-device one.  The read side's ladder: a fault
+of a sharded gather (the chaos seam `proof.shard`, shard_fail=<p>, or a
+real one) ticks celestia_recoveries_total{seam="proof.shard",
+outcome="degraded"} and the same rows are read on one device of the card
+instead (every block copied to the first block's device, then one gather);
+a fault there raises to the caller, whose seam retries it on the card.
+Rows read per shard tick celestia_serve_shard_gathers_total{shard} (forests)
+and celestia_serve_share_gathers_total{shard} (shares).  The JAX package's
+last rung, the host, has no counterpart: no fault of the card is answered
+from the CPU.
 """
 
 from __future__ import annotations
@@ -92,16 +98,74 @@ def eds_share_layout(buf):
     return buf.mesh, buf.mesh.axis, buf.shards
 
 
+def _count_rows(name: str, help_text: str, flat_indices, rows_per_block: int,
+                owners) -> None:
+    """Tick `name`{shard} by the rows read from each block's owning shard."""
+    from celestia_app_tpu_torch.trace.metrics import registry
+
+    counts = np.bincount(np.asarray(flat_indices, dtype=np.int64) // rows_per_block,
+                         minlength=len(owners))
+    ctr = registry().counter(name, help_text)
+    for block, n in enumerate(counts):
+        if n:
+            ctr.inc(int(n), shard=str(owners[block]))
+
+
+def _count_shard_rows(flat_indices, rows_per_block: int, owners) -> None:
+    _count_rows("celestia_serve_shard_gathers_total",
+                "forest rows gathered per serve shard (one sharded program "
+                "per micro-batch dispatch; bounded: one label per shard)",
+                flat_indices, rows_per_block, owners)
+
+
+def _count_share_rows(flat_indices, rows_per_block: int, owners) -> None:
+    _count_rows("celestia_serve_share_gathers_total",
+                "EDS shares gathered per extend shard (one sharded program per "
+                "share read; bounded: one label per shard)",
+                flat_indices, rows_per_block, owners)
+
+
+def single_device_take(rs: RowSharded, flat_indices):
+    """Rows `flat_indices` of the (N, shape[-1]) flattening of a row-sharded
+    array, read on ONE device: every block copied to the first block's
+    device, then one gather there; a tensor on that device.  The rung below
+    the sharded gather, on the same card."""
+    import torch
+
+    dev = rs.blocks[0].device
+    whole = torch.cat([b.to(dev) for b in rs.blocks]).reshape(-1, rs.shape[-1])
+    index = torch.as_tensor(np.asarray(flat_indices, dtype=np.int64)).to(dev)
+    return whole.index_select(0, index)
+
+
+def _degraded() -> None:
+    from celestia_app_tpu_torch.chaos.degrade import recoveries
+
+    recoveries().inc(seam="proof.shard", outcome="degraded")
+
+
 def sharded_share_gather(buf, coords) -> np.ndarray | None:
     """(B, SHARE_SIZE) shares of [(row, col), ...] from a row-sharded EDS,
     each coordinate read on the shard that owns its row (flat share offset
     r*n + c; equal contiguous row blocks flatten to equal contiguous flat
     blocks, so it is the forest gather's one-divide routing).  None when
-    `buf` is not row-sharded: the caller's single-device read answers."""
+    `buf` is not row-sharded: the caller's single-device read answers.  A
+    fault of the sharded read (chaos `proof.shard` or real) reads the same
+    shares on one device of the card (single_device_take)."""
     if eds_share_layout(buf) is None:
         return None
     n_cols = int(buf.shape[1])
-    return buf.take(np.asarray([r * n_cols + c for r, c in coords], dtype=np.int64))
+    flat = np.asarray([r * n_cols + c for r, c in coords], dtype=np.int64)
+    try:
+        from celestia_app_tpu_torch import chaos
+
+        chaos.proof_shard()
+        out = buf.take(flat)
+    except Exception:  # noqa: BLE001 -- the single-device rung answers
+        _degraded()
+        return single_device_take(buf, flat).cpu().numpy()
+    _count_share_rows(flat, buf.rows_per_block * n_cols, buf.owners)
+    return out
 
 
 class ShardedCachedForest(CachedForest):
@@ -125,11 +189,30 @@ class ShardedCachedForest(CachedForest):
 
     def gather(self, axis: str, flat_indices) -> np.ndarray:
         """(len(flat_indices), 90) node bytes: on the device tier each row
-        comes from the shard that owns it."""
+        comes from the shard that owns it.  A fault of the sharded gather
+        (chaos `proof.shard` or real) degrades THIS gather to the
+        single-device read on the same card, with the same bytes; a fault
+        there raises to the sampler, whose `proof.serve` seam retries it."""
         flat = self.row_flat if axis == "row" else self.col_flat
         if not isinstance(flat, RowSharded):  # spilled: one host tensor
             return super().gather(axis, flat_indices)
-        return flat.take(flat_indices)
+        try:
+            from celestia_app_tpu_torch import chaos
+
+            chaos.proof_shard()
+            out = flat.take(flat_indices)
+        except Exception:  # noqa: BLE001 -- the single-device rung answers
+            _degraded()
+            return single_device_take(flat, flat_indices).cpu().numpy()
+        _count_shard_rows(flat_indices, flat.rows_per_block, flat.owners)
+        return out
+
+    def gather_device(self, axis: str, flat_indices):
+        """The rows of `gather` as a tensor on the first shard's device."""
+        flat = self.row_flat if axis == "row" else self.col_flat
+        if not isinstance(flat, RowSharded):
+            return super().gather_device(axis, flat_indices)
+        return single_device_take(flat, flat_indices)
 
     def shard_resident_bytes(self) -> dict[str, int]:
         """Per-shard resident forest bytes (both axes): equal blocks."""

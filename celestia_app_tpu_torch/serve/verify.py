@@ -9,7 +9,16 @@ device (kernels/verify.py), the verify twin of the sampler.
       batched path matches by definition.  That routing is part of the
       semantics; a fault of the batched path raises.
     * $CELESTIA_VERIFY_MODE=host runs the host verifier for the whole queue.
-    * `leaf_digests(ns, shares)` hashes a batch of NMT leaves in one launch.
+    * `leaf_digests(ns, shares)` hashes a batch of NMT leaves in one launch
+      (the healing loop's survivor check), from host bytes or from tensors
+      already on the device.
+    * The chaos seam `proof.verify` (verify_fail=<p>) fails the batched
+      dispatch; the dispatch is retried on the card (chaos/degrade.
+      retry_on_card, each retry ticking celestia_recoveries_total{seam=
+      "proof.verify", outcome="retried"}) and raises device.DeviceFault
+      past the last.  The JAX package re-decides the whole queue on the
+      host instead; the port answers no fault of the card from the CPU.
+    * celestia_verified_samples_total{mode} counts the samples decided.
 
 The index plans come from the same `range_proof_node_coords` DFS plan the
 sampler serves proofs with, so the batched and host verdicts agree by
@@ -24,6 +33,8 @@ import os
 import numpy as np
 import torch
 
+from celestia_app_tpu_torch import chaos
+from celestia_app_tpu_torch.chaos.degrade import retry_on_card
 from celestia_app_tpu_torch.constants import NAMESPACE_SIZE, NMT_NODE_SIZE, SHARE_SIZE
 from celestia_app_tpu_torch.device import resolve_device
 from celestia_app_tpu_torch.kernels.verify import (
@@ -39,6 +50,15 @@ def verify_mode() -> str:
     """$CELESTIA_VERIFY_MODE: "batched" (default) or "host"."""
     mode = os.environ.get("CELESTIA_VERIFY_MODE", "batched").strip().lower()
     return mode if mode in ("batched", "host") else "batched"
+
+
+def _verified_counter():
+    from celestia_app_tpu_torch.trace.metrics import registry
+
+    return registry().counter(
+        "celestia_verified_samples_total",
+        "DAS samples verified, by verifier mode",
+    )
 
 
 @functools.lru_cache(maxsize=8192)
@@ -163,7 +183,9 @@ def _verify_canonical(proofs, roots, out: np.ndarray, device) -> list[int]:
 
 
 def _verify_host(proofs, roots) -> list[bool]:
-    return [bool(p.verify(r)) for p, r in zip(proofs, roots)]
+    verdicts = [bool(p.verify(r)) for p, r in zip(proofs, roots)]
+    _verified_counter().inc(len(proofs), mode="host")
+    return verdicts
 
 
 def verify_proofs(proofs, data_root, device=None) -> list[bool]:
@@ -185,8 +207,15 @@ def verify_proofs(proofs, data_root, device=None) -> list[bool]:
         raise ValueError(f"{len(roots)} data roots for {len(proofs)} proofs")
     if verify_mode() == "host":
         return _verify_host(proofs, roots)
-    accept = np.zeros(len(proofs), dtype=bool)
-    rest = _verify_canonical(proofs, roots, accept, dev)
+
+    def batched():
+        chaos.proof_verify()
+        accept = np.zeros(len(proofs), dtype=bool)
+        return accept, _verify_canonical(proofs, roots, accept, dev)
+
+    accept, rest = retry_on_card("proof.verify", batched)
+    if len(rest) < len(proofs):
+        _verified_counter().inc(len(proofs) - len(rest), mode="batched")
     verdicts = accept.tolist()
     if rest:
         host = _verify_host([proofs[i] for i in rest], [roots[i] for i in rest])
@@ -200,16 +229,43 @@ def verify_share_proof(proof, data_root: bytes, device=None) -> bool:
     return verify_proofs([proof], data_root, device)[0]
 
 
-def leaf_digests(ns: np.ndarray, shares: np.ndarray, device=None) -> np.ndarray:
+def leaf_digests(ns, shares, device=None):
     """(N, 29) x (N, D) uint8 -> (N, 90) NMT leaf digests in one launch on
-    `device` (NmtHasher.hash_leaf under $CELESTIA_VERIFY_MODE=host)."""
+    `device` (default CUDA; raises without a card), retried on the card
+    under the `proof.verify` seam; NmtHasher.hash_leaf under
+    $CELESTIA_VERIFY_MODE=host.  Numpy in, numpy out; tensors in, a tensor
+    out on their device (`device` is then theirs), so the healing loop's
+    survivor check never moves a square through host memory."""
+    if isinstance(ns, torch.Tensor):
+        dev = shares.device
+        if len(ns) == 0:
+            return torch.zeros((0, NMT_NODE_SIZE), dtype=torch.uint8, device=dev)
+        if verify_mode() == "host":
+            host = _leaf_digests_host(ns.cpu().numpy(), shares.cpu().numpy())
+            return torch.from_numpy(host).to(dev)
+
+        def batched():
+            chaos.proof_verify()
+            return nmt_leaf_digests(ns.contiguous(), shares.contiguous())
+
+        return retry_on_card("proof.verify", batched)
     dev = resolve_device(device)
     ns = np.ascontiguousarray(ns, dtype=np.uint8)
     shares = np.ascontiguousarray(shares, dtype=np.uint8)
     if len(ns) == 0:
         return np.zeros((0, NMT_NODE_SIZE), dtype=np.uint8)
     if verify_mode() == "host":
-        digests = [NmtHasher.hash_leaf(ns[i].tobytes() + shares[i].tobytes())
-                   for i in range(len(ns))]
-        return np.frombuffer(b"".join(digests), dtype=np.uint8).reshape(len(ns), NMT_NODE_SIZE)
-    return nmt_leaf_digests(torch.tensor(ns, device=dev), torch.tensor(shares, device=dev)).cpu().numpy()
+        return _leaf_digests_host(ns, shares)
+
+    def batched():
+        chaos.proof_verify()
+        return nmt_leaf_digests(torch.tensor(ns, device=dev),
+                                torch.tensor(shares, device=dev)).cpu().numpy()
+
+    return retry_on_card("proof.verify", batched)
+
+
+def _leaf_digests_host(ns: np.ndarray, shares: np.ndarray) -> np.ndarray:
+    digests = [NmtHasher.hash_leaf(ns[i].tobytes() + shares[i].tobytes())
+               for i in range(len(ns))]
+    return np.frombuffer(b"".join(digests), dtype=np.uint8).reshape(len(ns), NMT_NODE_SIZE)

@@ -12,10 +12,12 @@
   profiler.py   the N-block torch.profiler window and the memory gauge.
   round_journal.py   one row per consensus (height, round).
   flight_recorder.py the anomaly black box (`note_trigger`, bundles).
+  timeline.py   the height timeline: every plane's rows stitched per height,
+                its critical path.
 
 The JAX package's trace layer (celestia_app_tpu/trace/) also has the
-height timeline, the exposition and the fleet plane; they come over with
-the serving plane (ROADMAP, queue 1).
+exposition (the HTTP GET surface) and the fleet plane; they come next
+(ROADMAP, queue 1 item 4).
 """
 
 from celestia_app_tpu_torch.trace.context import (

@@ -49,11 +49,12 @@ can take down the thing it is diagnosing is worse than no layer at all.
 The port of celestia_app_tpu/trace/flight_recorder.py.  The bundle holds
 the sections whose planes the port has: the trace tables, the SLO payload,
 the degradation state (`degraded`: chaos.degrade.degraded_state), the chaos
-spec, the namespace labels and the device ledger's fresh snapshot
-(`device`: trace/device_ledger.snapshot).  Three sections of the JAX bundle
-wait for the serving plane (ROADMAP, queue 1 item 4): `healthz`
-(trace/exposition.health_payload), `coverage` (serve/api.coverage_snapshot)
-and `timeline` (trace/timeline).  `peer_bundle_index` is whole.
+spec, the namespace labels, the DAS coverage summary (`coverage`:
+serve/api.coverage_snapshot), the device ledger's fresh snapshot
+(`device`: trace/device_ledger.snapshot) and the height timeline
+(`timeline`: trace/timeline).  One section of the JAX bundle waits for the
+exposition (ROADMAP, queue 1 item 4): `healthz`
+(trace/exposition.health_payload).  `peer_bundle_index` is whole.
 """
 
 from __future__ import annotations
@@ -243,9 +244,11 @@ def capture(trigger: str, context: dict | None = None) -> dict:
     inspect the capture shape without touching disk)."""
     from celestia_app_tpu_torch import chaos
     from celestia_app_tpu_torch.chaos.degrade import degraded_state
+    from celestia_app_tpu_torch.serve.api import coverage_snapshot
     from celestia_app_tpu_torch.trace import slo, square_journal
     from celestia_app_tpu_torch.trace.context import node_id
     from celestia_app_tpu_torch.trace.device_ledger import snapshot as device_snapshot
+    from celestia_app_tpu_torch.trace.timeline import timeline
     from celestia_app_tpu_torch.trace.tracer import traced
 
     tracer = traced()
@@ -262,9 +265,15 @@ def capture(trigger: str, context: dict | None = None) -> dict:
         "degraded": degraded_state(),
         "chaos_spec": getattr(inj, "raw", "") if inj is not None else "",
         "namespaces": square_journal.namespaces_payload(),
+        # The DAS coverage summary (serve/api.py): how much of each
+        # retained height's square was decided when the anomaly fired.
+        "coverage": coverage_snapshot(),
         # The device-attribution ledger: what was built and resident and
         # who owned the bytes at the moment of failure — a FRESH snapshot.
         "device": device_snapshot(),
+        # The height-anatomy timeline (trace/timeline.py): the last 8
+        # heights' critical paths and the latest full record.
+        "timeline": timeline().bundle_block(tail=8),
         "tail_rows": n,
         "tables": tables,
     }

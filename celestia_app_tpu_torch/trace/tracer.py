@@ -7,7 +7,7 @@ pkg/trace's columnar event tables written node-side and pulled for analysis.
 
 Here both collapse into one in-process Tracer: named event tables holding
 homogeneous dict rows, with a `span` context manager for wall-time
-measurements (device kernel timings from jax block_until_ready land in the
+measurements (device kernel timings, taken after a synchronize, land in the
 same tables).  Export is JSONL per table, the same shape the reference's
 table puller consumes (test/e2e/testnet/node.go:52-74); the serving planes
 expose it live on GET /trace_tables (trace/exposition.py).
@@ -20,6 +20,10 @@ holds `_lock`; buffer eviction is counted in the Prometheus counter
 $CELESTIA_TRACE=off gates the whole layer: writes and span observations
 become no-ops (span still times nothing into the registry), so a latency
 bisection can rule tracing out without a rebuild.
+
+The port's copy of celestia_app_tpu/trace/tracer.py, whole: row observers
+(`add_observer`, called after every write outside the lock, never failing
+a write) and the height timeline installed on the first `traced()`.
 """
 
 from __future__ import annotations
@@ -54,6 +58,17 @@ class Tracer:
         # an explicitly requested artifact (bench --metrics-out) must not
         # come back empty because the operator muted the global layer.
         self.env_gated = env_gated
+        # Row observers (trace/timeline.py's height stitcher): called
+        # with (table, row) after every write, outside the table lock.
+        self._observers: list = []
+
+    def add_observer(self, fn) -> None:
+        """Subscribe `fn(table, row)` to every row written through this
+        tracer (idempotent).  Observers run outside `_lock` and must not
+        mutate the row (it is the retained ring object)."""
+        with self._lock:
+            if fn not in self._observers:
+                self._observers.append(fn)
 
     def _on(self) -> bool:
         return self.enabled and (not self.env_gated or trace_enabled())
@@ -70,10 +85,16 @@ class Tracer:
         dropped = 0
         with self._lock:
             rows = self._tables.setdefault(table, [])
-            rows.append({"ts_ns": time.time_ns(), "node_id": node_id(), **row})
+            stamped = {"ts_ns": time.time_ns(), "node_id": node_id(), **row}
+            rows.append(stamped)
             if len(rows) > self.buffer_size:
                 dropped = len(rows) - self.buffer_size
                 del rows[:dropped]
+        for obs in self._observers:
+            try:
+                obs(table, stamped)
+            except Exception:  # chaos-ok: observers must never fail a write
+                pass
         if dropped:
             registry().counter(
                 "celestia_trace_rows_dropped",
@@ -148,6 +169,17 @@ class Tracer:
 # Process-wide default tracer (the node wires its own when needed).
 _default = Tracer()
 
+# The height timeline subscribes lazily on first access: the flag is set
+# BEFORE the import so timeline.py's own traced() calls during install
+# return immediately instead of recursing.
+_TIMELINE_INSTALLED = False
+
 
 def traced() -> Tracer:
+    global _TIMELINE_INSTALLED
+    if not _TIMELINE_INSTALLED:
+        _TIMELINE_INSTALLED = True
+        from celestia_app_tpu_torch.trace import timeline
+
+        timeline.install(_default)
     return _default

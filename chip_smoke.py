@@ -43,10 +43,18 @@ Phases, in order; any failure raises and the script exits non-zero:
              (32 held byte-equal to the host lowering), and verify_proofs on
              all of them and on a queue with 64 tampered proofs, exactly
              those rejected;
-  8. uploads the one-shot calls' staged (pinned) host-to-device copy against a
+  8. serve   the DAS serving plane: a DasProvider over the k=512 square
+             (share proofs on both axes, namespace shares and an
+             attestation, each == the host lowering and verified), the
+             adversary's withheld / malformed / wrong-root refusals, heals
+             (tampered shares, irrecoverable, a dispatch fault mid-repair,
+             a fault past the ladder's floor: no verdict), proof_fail
+             retried on the card, and a k=128 ServingNode's three DAS RPCs
+             over HTTP with its healer repairing a withheld height;
+  9. uploads the one-shot calls' staged (pinned) host-to-device copy against a
              pageable one, in turns: the upload alone and extend_shares at
              k=128 and 512, and the k=512 repair;
-  9. stream  stream_blocks at k=128 (leopard, 32 squares, batch 1 and 4) and
+ 10. stream  stream_blocks at k=128 (leopard, 32 squares, batch 1 and 4) and
              k=512 (vandermonde, 8 squares, batch 1), depth 2: every data root
              equal to a one-shot compute, squares per second beside the
              one-shot time, launches per dispatch (counted per batch from the
@@ -56,7 +64,7 @@ Phases, in order; any failure raises and the script exits non-zero:
              built on the default stream while the pipeline runs, equal to
              the one-shot forests; a speculation hit and a discard; the
              ring's swap of a pinned slot;
- 10. faults  the device fault plane (chaos/degrade.py): the degradation
+ 11. faults  the device fault plane (chaos/degrade.py): the degradation
              ladder walked rung by rung at k=512 under $CELESTIA_CHAOS specs
              (fused_epi -> fused -> staged -> host, each rung's journal row
              and launches, on the dense and the XOR core), real launch
@@ -65,8 +73,8 @@ Phases, in order; any failure raises and the script exits non-zero:
              sentinel's drills, warm-up's cold and warm first calls, the
              device ledger and the bridge backend's fall-back (the phase's
              docstring says what it checks);
- 11. commitments, 12. app, 13. chain, 14. node, 15. consensus, 16. querier,
- 17. bridge: the consensus-side entry points, the ABCI App's CheckTx /
+ 12. commitments, 13. app, 14. chain, 15. node, 16. consensus, 17. querier,
+ 18. bridge: the consensus-side entry points, the ABCI App's CheckTx /
              PrepareProposal / ProcessProposal among them, two k=128
              heights of Prepare -> Process -> FinalizeBlock -> Commit, the
              in-process node (TestNode, Network, txsim) broadcasting two
@@ -76,7 +84,7 @@ Phases, in order; any failure raises and the script exits non-zero:
              one with a dead proposer and one with an injected launch fault
              that outlasts the ladder (each phase's docstring says what it
              checks);
- 18. giant   k=1024 and k=2048 (GF(2^16)): the materializing fused, epi and
+ 19. giant   k=1024 and k=2048 (GF(2^16)): the materializing fused, epi and
              XOR lowerings and the panel-streamed one ($CELESTIA_PIPE_PANEL:
              64-row panels, 48-row panels at k=1024, the FFT column leg):
              one data root and one EDS per k, the roots-only twins, 64
@@ -84,7 +92,7 @@ Phases, in order; any failure raises and the script exits non-zero:
              lowering as counted from the code, wall and device time and
              peak memory per lowering, a k=1024 BlockPipeline under panel
              mode (batch 1, 16 panels per square);
- 19. mesh    the multi-device plane on 4 logical shards of cuda:0, each with
+ 20. mesh    the multi-device plane on 4 logical shards of cuda:0, each with
              its own stream (and again over the real cards where there are
              two or more): the k=512 sharded extend over 2 and 4 shards and
              its DAH-only twin == single-card compute, sharded repair with
@@ -1017,6 +1025,361 @@ def phase_das(torch, eds, card: str) -> None:
                              f"{sorted(int(j) for j in bad)[:8]}...")
     log(f"[{card}] verify_proofs {len(queue)} samples with 64 tampered (16 shares, 16 "
         f"siblings, 16 row roots, 16 data roots): exactly those 64 false; {ms:.3f} ms")
+
+
+def malform_seed_outside_q0(height: int, k: int, count: int) -> int:
+    """The least chaos seed whose `count` malformed shares at `height` all lie
+    outside the k x k data quadrant: the heal then decodes nothing and runs
+    the survivor check, the re-extension and the root check only (a decode
+    at k=512 solves one O(k^3) recover matrix per erasure pattern on the
+    host)."""
+    from celestia_app_tpu_torch.chaos.adversary import Adversary
+
+    for seed in range(100_000):
+        adv = Adversary.from_params({"seed": seed, "malform_shares": count})
+        if all(r >= k or c >= k for r, c in adv.malformed_coords(height, 2 * k)):
+            return seed
+    raise AssertionError("no seed keeps the malformed shares out of Q0")
+
+
+SERVE_SAMPLES = 256
+SERVE_ATTESTATION = 64
+
+
+def phase_serve(torch, eds, card: str) -> dict:
+    """The DAS serving plane on the card (serve/api.py, serve/heal.py):
+      1. a DasProvider over phase_das's k=512 square: SERVE_SAMPLES
+         share_proof payloads per axis, 2 namespace payloads and one
+         SERVE_ATTESTATION-sample attestation, each == the host lowering's
+         bytes (sampler.host_proof, host trees) and verifying against the
+         root (verify_proofs on the card);
+      2. the adversary's drills: a withheld sample and an attestation over it
+         raise ShareWithheld; malformed shares and a wrong root raise
+         BadProofDetected from the verification gate, whose launches are
+         counted;
+      3. heals at k=512 (counts set to 0 just before each, read just after):
+         malformed shares outside Q0 (the survivor check excludes them,
+         repair re-extends, the root check passes, the entry is re-admitted
+         healed; rs_dense, sha256_leaf and sha256 each launched; phases, peak
+         memory, the malformed coordinate then served == the honest payload),
+         withhold_frac=0.95 (irrecoverable, quarantined), dispatch_fail=1.0
+         mid-repair (the ladder walks down and the heal completes), and a
+         fault on every rung (DeviceFault past the floor: no quarantine, no
+         record, the height not mid-heal); proof_fail retried twice then the
+         same bytes, and on every try a DeviceFault;
+      4. a k=128 ServingNode (APP_BLOCK's block) served over HTTP with
+         $CELESTIA_HEAL=1: get_share_proof, get_shares_by_namespace and
+         get_attestation through RemoteNode == the provider's payloads; a
+         withheld sample (withhold_frac=0.25) refused with "ShareWithheld:",
+         healed by the server's healer thread (one recover matrix per
+         erasure pattern, on the host, then rs_dense per group), and then
+         served == the honest payload.
+    Returns the launches of one gated payload, one attestation and each
+    heal."""
+    import copy
+
+    from celestia_app_tpu_torch import chaos
+    from celestia_app_tpu_torch.chaos import degrade
+    from celestia_app_tpu_torch.device import DeviceFault
+    from celestia_app_tpu_torch.kernels import _build
+    from celestia_app_tpu_torch.proof.share_proof import (
+        new_share_inclusion_proof,
+        ods_namespace_range,
+    )
+    from celestia_app_tpu_torch.rpc.client import RemoteNode, RPCError
+    from celestia_app_tpu_torch.rpc.codec import (
+        share_proof_from_json,
+        share_proofs_from_attestation,
+        to_jsonable,
+    )
+    from celestia_app_tpu_torch.rpc.server import ServingNode, serve
+    from celestia_app_tpu_torch.serve import ForestCache, heal
+    from celestia_app_tpu_torch.serve.api import DasProvider, render
+    from celestia_app_tpu_torch.serve.sampler import BadProofDetected, ShareWithheld
+    from celestia_app_tpu_torch.serve.verify import verify_proofs
+
+    k = eds.k
+    n = 2 * k
+    out: dict = {}
+
+    def provider(height: int) -> DasProvider:
+        p = DasProvider(cache=ForestCache(heights=2, spill=1))
+        p.cache.put(height, eds)
+        return p
+
+    def host_payload(p, height, row, col, axis="row") -> bytes:
+        entry = p._honest_entry(height)
+        return render({"height": height, "row": row, "col": col, "axis": axis, "square_size": k,
+                       "proof": to_jsonable(p.sampler.host_proof(entry, row, col, axis)),
+                       "data_root": entry.data_root.hex()})
+
+    # 1. Payloads == the host lowering's bytes, and verifying on the card.
+    prov = provider(1)
+    entry = prov.entry(1)
+    root = entry.data_root
+    rng = np.random.default_rng(515)
+    for axis in ("row", "col"):
+        coords = [tuple(int(v) for v in c) for c in rng.integers(0, n, (SERVE_SAMPLES, 2))]
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        payloads = [prov.share_proof_payload(1, r, c, axis=axis) for r, c in coords]
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(_build.LAUNCHES)
+        for (r, c), payload in zip(coords, payloads):
+            if render(payload) != host_payload(prov, 1, r, c, axis):
+                raise AssertionError(f"share_proof ({r}, {c}) axis={axis} != the host lowering")
+        proofs = [share_proof_from_json(p["proof"]) for p in payloads]
+        if not all(verify_proofs(proofs, root)):
+            raise AssertionError(f"a served axis={axis} share_proof does not verify")
+        log(f"[{card}] serve k={k}: {SERVE_SAMPLES} share_proof payloads axis={axis} in "
+            f"{ms:.3f} ms ({ms / SERVE_SAMPLES:.3f} ms each, ungated: launches {counts}); each "
+            f"== the host lowering's bytes, all verify on the card")
+    ods_ns = eds.ods_namespaces()
+    for i in (3 * k + 5, (k - 7) * k + 17 % k):
+        ns = ods_ns[i].tobytes()
+        payload = prov.shares_payload(1, ns.hex())
+        lo, hi = ods_namespace_range(eds, ns)
+        host_eds = copy.copy(eds)  # no forest: the proof from host trees
+        host_eds._forest, host_eds._tree_memo = None, {}
+        want = to_jsonable(new_share_inclusion_proof(host_eds, lo, hi))
+        if not payload["found"] or payload["proof"] != want or \
+                not share_proof_from_json(payload["proof"]).verify(root):
+            raise AssertionError(f"namespace {ns.hex()} payload != the host lowering or unverified")
+    log(f"[{card}] serve k={k}: 2 namespace payloads == the host trees' proofs, verified")
+    samples = sorted({(int(r), int(c), str(a)) for (r, c), a in zip(
+        rng.integers(0, n, (SERVE_ATTESTATION, 2)), rng.choice(["row", "col"], SERVE_ATTESTATION))})
+    spec = ",".join(f"{r}:{c}:{a}" for r, c, a in samples)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    att = prov.attestation_payload(1, spec)
+    ms = (time.perf_counter() - t0) * 1e3
+    rebuilt = share_proofs_from_attestation(att)
+    for s, proof in zip(att["samples"], rebuilt):
+        if proof != prov.sampler.host_proof(entry, s["row"], s["col"], s["axis"]):
+            raise AssertionError(f"attestation sample {s} != the host lowering")
+    if len(rebuilt) != len(samples) or not all(verify_proofs(rebuilt, root)):
+        raise AssertionError("the attestation's proofs do not verify")
+    with environment({"CELESTIA_SERVE_VERIFY": "1"}):  # the gate armed on honest state
+        _build.reset_launches()
+        prov.share_proof_payload(1, 3, n - 5)
+        out["gated payload"] = dict(_build.LAUNCHES)
+        _build.reset_launches()
+        t1 = time.perf_counter()
+        prov.attestation_payload(1, spec)
+        gated_ms = (time.perf_counter() - t1) * 1e3
+        out["gated attestation"] = dict(_build.LAUNCHES)
+    check_launches("gated share_proof", out["gated payload"], {"sha256_leaf": 1, "sha256": None})
+    check_launches("gated attestation", out["gated attestation"],
+                   {"sha256_leaf": None, "sha256": None})
+    log(f"[{card}] serve k={k}: under CELESTIA_SERVE_VERIFY=1 a share_proof launches "
+        f"{out['gated payload']}, the attestation {out['gated attestation']} in {gated_ms:.3f} ms")
+    log(f"[{card}] serve k={k}: attestation of {len(samples)} samples in {ms:.3f} ms, "
+        f"{len(render(att))} bytes (the {len(samples)} share_proof payloads: "
+        f"{sum(len(host_payload(prov, 1, s['row'], s['col'], s['axis'])) for s in att['samples'])}"
+        f" bytes); each sample == the host lowering, all verify")
+
+    # 2. The adversary's refusals and the gate's launches.
+    try:
+        chaos.install("seed=31,withhold_frac=0.25")
+        r, c = sorted(chaos.active_adversary().withheld_set(1, n))[0]
+        for call in (lambda: prov.share_proof_payload(1, r, c),
+                     lambda: prov.attestation_payload(1, f"0:0,{r}:{c}")):
+            try:
+                call()
+            except ShareWithheld:
+                continue
+            raise AssertionError(f"withheld ({r}, {c}) was served")
+        for spec_ in (f"seed={malform_seed_outside_q0(1, k, 4)},malform_shares=4",
+                      "seed=13,wrong_root=1"):
+            chaos.install(spec_)
+            adv = chaos.active_adversary()
+            target = (adv.malformed_coords(1, n) or [(5, 7)])[0]
+            _build.reset_launches()
+            try:
+                prov.share_proof_payload(1, *target)
+            except BadProofDetected:
+                counts = dict(_build.LAUNCHES)
+            else:
+                raise AssertionError(f"{spec_}: a tampered payload was served")
+            check_launches(f"verification gate ({spec_})", counts,
+                           {"sha256_leaf": 1, "sha256": None})
+            log(f"[{card}] serve k={k}: {spec_}: the gate refused the payload "
+                f"(BadProofDetected), launches {counts}")
+        log(f"[{card}] serve k={k}: withheld sample and attestation refused (ShareWithheld)")
+    finally:
+        chaos.uninstall()
+
+    # 3. Heals at k=512.
+    def heal_drill(label: str, spec_: str, height: int, want: str, expect=None):
+        p = provider(height)
+        engine = heal.HealingEngine(p, name=f"serve-{height}", backoff_s=0.0)
+        try:
+            chaos.install(spec_)
+            adv = chaos.active_adversary()
+            target = (sorted(adv.withheld_set(height, n))[0] if adv.withhold_frac
+                      else adv.malformed_coords(height, n)[0])
+            honest = host_payload(p, height, *target)
+            try:
+                p.share_proof_payload(height, *target)
+            except (ShareWithheld, BadProofDetected):
+                pass
+            else:
+                raise AssertionError(f"{label}: the attacked sample was served")
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            try:
+                result = engine.process_pending()
+            except DeviceFault as e:
+                result = [(height, "DeviceFault")]
+                log(f"[{card}] {label}: DeviceFault out of process_pending ({str(e)[:120]})")
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            counts = dict(_build.LAUNCHES)
+            peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+            state = engine.state()
+            if result != [(height, want)]:
+                raise AssertionError(f"{label}: {result}, want {want} ({state})")
+            if expect is not None:
+                check_launches(label, counts, expect)
+            chaos.uninstall()
+            if want == "healed":
+                served = render(p.share_proof_payload(height, *target))
+                if served != honest:
+                    raise AssertionError(f"{label}: the healed coordinate != the honest payload")
+            elif want == "DeviceFault":
+                if state["healing"] or state["quarantined_total"] or state["last"] is not None:
+                    raise AssertionError(f"{label}: a device fault left a verdict: {state}")
+            elif not engine.is_quarantined(height):
+                raise AssertionError(f"{label}: not quarantined ({state})")
+            last = state["last"] or {}
+            log(f"[{card}] {label}: {want} in {wall:.3f} ms (phases {last.get('phases_ms')}, "
+                f"attempts {last.get('attempts')}); launches {counts}; peak "
+                f"{peak:.3f} GB above the {base / 1e9:.3f} GB allocated; ladder "
+                f"{degrade.degraded_state()}")
+            return counts
+        finally:
+            chaos.uninstall()
+            engine.close()
+            degrade.reset_for_tests()
+
+    tamper = f"seed={malform_seed_outside_q0(2, k, 4)},malform_shares=4"
+    out[f"heal k={k}"] = heal_drill(
+        f"heal k={k}, 4 malformed shares outside Q0", tamper, 2, "healed",
+        {"rs_dense": None, "sha256_leaf": None, "sha256": None})
+    heal_drill(f"heal k={k}, withhold_frac=0.95", "seed=7,withhold_frac=0.95", 3,
+               "irrecoverable", {"rs_dense": 0})
+    heal_drill(f"heal k={k} with dispatch_fail=1.0 mid-repair",
+               f"seed={malform_seed_outside_q0(4, k, 4)},malform_shares=4,dispatch_fail=1.0", 4,
+               "healed", {"rs_dense": None, "sha256_leaf": None, "sha256": None})
+    heal_drill(f"heal k={k} with a fault on every rung",
+               f"seed={malform_seed_outside_q0(5, k, 4)},malform_shares=4,dispatch_fail=1.0,"
+               f"dispatch_fail_all=1", 5, "DeviceFault")
+    # proof_fail: two failed tries, then the same bytes; on every try a fault.
+    seam_seed = trip_once_seed("proof.serve", 2)
+    r, c = 9, n - 3
+    honest = render(prov.share_proof_payload(1, r, c))
+    retried0 = counter_value("celestia_recoveries_total", seam="proof.serve", outcome="retried")
+    try:
+        chaos.install(f"seed={seam_seed},proof_fail=0.5")
+        if render(prov.share_proof_payload(1, r, c)) != honest:
+            raise AssertionError("a retried share_proof != the honest payload")
+        retried = counter_value("celestia_recoveries_total", seam="proof.serve",
+                                outcome="retried") - retried0
+        chaos.install("seed=1,proof_fail=1.0")
+        try:
+            prov.share_proof_payload(1, r, c)
+        except DeviceFault:
+            pass
+        else:
+            raise AssertionError("proof_fail=1.0 was answered")
+    finally:
+        chaos.uninstall()
+    log(f"[{card}] serve k={k}: proof_fail retried {retried:g} times then == the honest "
+        f"payload; on every try DeviceFault after {degrade.DEFAULT_THRESHOLD} retries")
+    del prov, entry
+
+    # 4. A k=128 ServingNode over HTTP with its healer.
+    from celestia_app_tpu_torch.testutil import deterministic_genesis, funded_keys
+    from celestia_app_tpu_torch.testutil.blocks import block_txs
+
+    keys = funded_keys(APP_BLOCK["n_keys"])
+    genesis = deterministic_genesis(keys, n_validators=1, gov_max_square_size=APP_K)
+    txs = block_txs(keys, genesis.chain_id, seed=APP_BLOCK["seed"], sends=APP_BLOCK["sends"],
+                    pfbs=APP_BLOCK["pfbs"], blob_shares=APP_BLOCK["blob_shares"])
+    node = ServingNode(genesis=genesis, keys=keys, n_validators=1)
+    t0 = time.perf_counter()
+    for raw in txs:
+        node.broadcast(raw, relay=False)
+    node.produce_block()
+    log(f"[{card}] serve node: {len(txs)} txs broadcast and one height produced in "
+        f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+    with environment({"CELESTIA_HEAL": "1"}):
+        server = serve(node, port=0, block_interval_s=None)
+    try:
+        remote = RemoteNode(server.url)
+        nprov = node.das_provider()
+        nk = nprov.entry(1).k
+        if nk != APP_K:
+            raise AssertionError(f"the node's block is k={nk}, want {APP_K}")
+        nn = 2 * nk
+        ns = nprov.entry(1).eds.ods_namespaces()[nk * nk // 2].tobytes().hex()
+        att_spec = ",".join(f"{i}:{(7 * i) % nn}:{'col' if i % 2 else 'row'}" for i in range(16))
+        calls = (("get_share_proof", {"height": 1, "row": 3, "col": nn - 2, "axis": "col"},
+                  lambda: nprov.share_proof_payload(1, 3, nn - 2, axis="col")),
+                 ("get_shares_by_namespace", {"height": 1, "namespace": ns},
+                  lambda: nprov.shares_payload(1, ns)),
+                 ("get_attestation", {"height": 1, "samples": att_spec},
+                  lambda: nprov.attestation_payload(1, att_spec)))
+        for method, params, direct in calls:
+            t0 = time.perf_counter()
+            got = remote.call(method, **params)
+            ms = (time.perf_counter() - t0) * 1e3
+            if render(got) != render(direct()):
+                raise AssertionError(f"{method} over HTTP != the provider's payload")
+            log(f"[{card}] serve node k={nk}: {method} over HTTP {ms:.3f} ms, == the provider")
+        chaos.install("seed=31,withhold_frac=0.25")
+        r, c = sorted(chaos.active_adversary().withheld_set(1, nn))[0]
+        engine = server._healer
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            remote.call("get_share_proof", height=1, row=r, col=c)
+        except RPCError as e:
+            if not str(e).startswith("ShareWithheld: "):
+                raise
+        else:
+            raise AssertionError("a withheld sample was served over HTTP")
+        deadline = time.monotonic() + 120
+        while engine.state()["healed"] < 1 and time.monotonic() < deadline:
+            time.sleep(0.02)
+        heal_ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(_build.LAUNCHES)
+        state = engine.state()
+        if state["healed"] != 1:
+            raise AssertionError(f"the node's healer did not heal: {state}")
+        check_launches(f"node heal k={nk}", counts,
+                       {"rs_dense": None, "sha256_leaf": None, "sha256": None})
+        out[f"heal k={nk}, withhold_frac=0.25"] = counts
+        healed = remote.call("get_share_proof", height=1, row=r, col=c)
+        chaos.uninstall()
+        nprov.cache.reset_for_tests()  # the next answer is rebuilt from the block store
+        honest_payload = remote.call("get_share_proof", height=1, row=r, col=c)
+        if render(healed) != render(honest_payload):
+            raise AssertionError("the healed coordinate != the honest payload")
+        log(f"[{card}] serve node k={nk}: withheld ({r}, {c}) refused over HTTP, healed by the "
+            f"server's healer in {heal_ms:.3f} ms from the detection (phases "
+            f"{state['last']['phases_ms']}), launches {counts}; then served == the honest "
+            f"payload")
+    finally:
+        chaos.uninstall()
+        server.stop()
+        degrade.reset_for_tests()
+    if heal.engines():
+        raise AssertionError(f"a healer outlived its server: {heal.engines()}")
+    return out
 
 
 @contextlib.contextmanager
@@ -4353,6 +4716,8 @@ def main() -> int:
     phase_done("repair")
     phase_das(torch, eds, card)
     phase_done("das")
+    serve_counts = phase_serve(torch, eds, card)
+    phase_done("serve")
     phase_uploads(torch, eds, card)
     phase_done("uploads")
     del eds
@@ -4383,7 +4748,8 @@ def main() -> int:
         f"chain height's Prepare, Process, Finalize and Commit {chain_counts}; per k={APP_K} "
         f"node height {node_counts['height']}, of them its recheck's {node_counts['recheck']}; "
         f"per gossip height and validator {consensus['validators']}; per proof "
-        f"query {query_counts}; in the bridge worker over its run {bridge_counts}")
+        f"query {query_counts}; in the bridge worker over its run {bridge_counts}; per DAS "
+        f"payload and heal {serve_counts}")
 
     # Each kernel's launches on the k=512 path that runs it: the column
     # phase's kernel names the path, the hashing kernels run on every path.

@@ -589,8 +589,10 @@ def test_chaos_spec_rejections_equal(spec):
 
 
 def test_chaos_env_spec_and_adversary(monkeypatch):
-    """$CELESTIA_CHAOS is parsed per string change, as in JAX; the port's
-    protocol adversary is not ported and says so."""
+    """$CELESTIA_CHAOS is parsed per string change, as in JAX; an adversary
+    key builds the protocol adversary, whose withheld set is the JAX
+    package's."""
+    from celestia_app_tpu import chaos as jax_chaos
     from celestia_app_tpu_torch import chaos
 
     monkeypatch.setenv("CELESTIA_CHAOS", "seed=4,gossip_drop=1")
@@ -599,8 +601,10 @@ def test_chaos_env_spec_and_adversary(monkeypatch):
     monkeypatch.setenv("CELESTIA_CHAOS", "")
     assert chaos.injector() is None and chaos.gossip_send() == {}
     chaos.install("seed=1,withhold_frac=0.5")
+    jax_chaos.install("seed=1,withhold_frac=0.5")
     try:
-        with pytest.raises(NotImplementedError, match="serve API"):
-            chaos.active_adversary()
+        assert chaos.active_adversary().withheld_set(3, 8) == \
+            jax_chaos.active_adversary().withheld_set(3, 8)
     finally:
         chaos.uninstall()
+        jax_chaos.uninstall()

@@ -891,3 +891,78 @@ def test_parity_sentinel_matches_on_its_own_stream(cuda, monkeypatch):
                                    device=cuda)
     eds_mod.drain_parity_checks(120)
     assert matches() == before + 3
+
+
+def _serve_square(k: int, device):
+    from celestia_app_tpu_torch.constants import NAMESPACE_SIZE, SHARE_SIZE
+    from celestia_app_tpu_torch.da import extend_shares
+
+    rng = np.random.default_rng(k)
+    ods = rng.integers(0, 256, (k * k, SHARE_SIZE), dtype=np.uint8)
+    ods[:, :NAMESPACE_SIZE] = 0
+    ods[:, NAMESPACE_SIZE - 1] = np.sort(rng.integers(0, 128, k * k))
+    return extend_shares([s.tobytes() for s in ods], device=device)
+
+
+def test_das_payloads_on_card_equal_cpu(cuda):
+    """The DasProvider's share proof, namespace and attestation payloads on
+    the card == on the CPU, the verification gate armed."""
+    from celestia_app_tpu_torch.serve import ForestCache
+    from celestia_app_tpu_torch.serve.api import DasProvider, render
+
+    k = 16
+    outs = []
+    for device in (cuda, "cpu"):
+        p = DasProvider(cache=ForestCache(heights=1, spill=1, device=device))
+        p.cache.put(1, _serve_square(k, device))
+        ns = p.entry(1).eds.ods_namespaces()[40].tobytes().hex()
+        os.environ["CELESTIA_SERVE_VERIFY"] = "1"
+        try:
+            outs.append([render(p.share_proof_payload(1, r, c, axis=a))
+                         for r, c, a in ((0, 0, "row"), (5, 30, "col"), (31, 31, "row"))]
+                        + [render(p.shares_payload(1, ns)),
+                           render(p.attestation_payload(1, "0:0,3:4:col,20:21,31:0:col"))])
+        finally:
+            os.environ.pop("CELESTIA_SERVE_VERIFY", None)
+    assert outs[0] == outs[1]
+
+
+def test_heal_on_card_equals_cpu_and_a_fault_is_no_verdict(cuda):
+    """A withheld height heals on the card to the CPU heal's square; a fault
+    on every rung raises DeviceFault with no verdict recorded."""
+    from celestia_app_tpu_torch import chaos
+    from celestia_app_tpu_torch.chaos import degrade
+    from celestia_app_tpu_torch.device import DeviceFault
+    from celestia_app_tpu_torch.serve import ForestCache, heal
+    from celestia_app_tpu_torch.serve.api import DasProvider, render
+    from celestia_app_tpu_torch.serve.sampler import ShareWithheld
+
+    k = 8
+    served = []
+    try:
+        for device in (cuda, "cpu"):
+            p = DasProvider(cache=ForestCache(heights=1, spill=1, device=device))
+            p.cache.put(1, _serve_square(k, device))
+            engine = heal.HealingEngine(p, name=f"card-{device}")
+            chaos.install("seed=31,withhold_frac=0.25")
+            coord = sorted(chaos.active_adversary().withheld_set(1, 2 * k))[0]
+            with pytest.raises(ShareWithheld):
+                p.share_proof_payload(1, *coord)
+            assert engine.process_pending() == [(1, "healed")]
+            served.append(render(p.share_proof_payload(1, *coord)))
+            engine.close()
+        assert served[0] == served[1]
+        p = DasProvider(cache=ForestCache(heights=1, spill=1, device=cuda))
+        p.cache.put(1, _serve_square(k, cuda))
+        engine = heal.HealingEngine(p, name="card-fault")
+        chaos.install("seed=31,withhold_frac=0.25,dispatch_fail=1.0,dispatch_fail_all=1")
+        with pytest.raises(ShareWithheld):
+            p.share_proof_payload(1, *coord)
+        with pytest.raises(DeviceFault):
+            engine.process_pending()
+        state = engine.state()
+        assert state["healing"] == [] and state["quarantined_total"] == 0 and state["last"] is None
+        engine.close()
+    finally:
+        chaos.uninstall()
+        degrade.reset_for_tests()

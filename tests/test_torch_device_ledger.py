@@ -285,14 +285,22 @@ def jax_profiler_rss():
 
 
 def test_bundle_sections_equal_jax():
+    from celestia_app_tpu.serve import api as jax_api
+    from celestia_app_tpu_torch.serve import api
+
     degrade.DEVICE_DEGRADATION.degrade("fused")
     jax_degrade.DEVICE_DEGRADATION.degrade("fused")
+    for mod in (api, jax_api):
+        mod._reset_coverage_for_tests()
+        mod.coverage_tick(3, 4, [(0, 0), (5, 6)], "withheld")
     port, ref = flight_recorder.capture("probe"), jax_flight.capture("probe")
     assert port["degraded"] == ref["degraded"] == {"device": "staged"}
     assert set(port["device"]) == set(ref["device"])
     assert port["device"]["ownership"]["measured_source"] == "rss_high_water"
-    # What the serving plane will bring: /healthz, DAS coverage, the timeline.
-    assert set(ref) - set(port) == {"healthz", "coverage", "timeline"}
+    assert port["coverage"] == ref["coverage"]
+    assert set(port["timeline"]) == set(ref["timeline"])
+    # What the exposition will bring: /healthz.
+    assert set(ref) - set(port) == {"healthz"}
     assert set(port) <= set(ref)
 
 

@@ -4,7 +4,9 @@ of `cryptography` (the card's machine lacks it; the port's keys are its own).
 Two checks: every module of celestia_app_tpu_torch (the multi-device plane,
 the ABCI App and its block execution's keepers and IBC stack, the mempool,
 the in-process node and its clients, the round machine, the vote WAL, the
-chaos spec and the gossip-driven serving node included) imported in a fresh
+chaos spec and the gossip-driven serving node, the protocol adversary, the
+DAS provider, the healing loop and the height timeline included) imported
+in a fresh
 interpreter leaves no `jax`,
 `celestia_app_tpu.*` or `cryptography` module in sys.modules, and no source
 of the port (nor chip_smoke.py) names one in an import statement, including
@@ -65,7 +67,8 @@ def test_importing_every_port_module_loads_no_jax():
                  "user.tx_client", "txsim.run", "consensus.machine", "consensus.wal",
                  "trace.round_journal", "trace.flight_recorder", "chaos", "chaos.spec",
                  "chaos.degrade", "rpc", "rpc.transport", "rpc.codec", "rpc.gossip",
-                 "rpc.server", "rpc.client"):
+                 "rpc.server", "rpc.client", "chaos.adversary", "serve.api", "serve.heal",
+                 "trace.timeline"):
         assert f"celestia_app_tpu_torch.{name}" in result["imported"]
     assert result["forbidden"] == []
 

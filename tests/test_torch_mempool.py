@@ -456,6 +456,10 @@ def test_slo_engine_state_equal(monkeypatch):
 
 
 def test_owner_registry_equal():
+    # The pools' owners are registered when the mempool modules are imported;
+    # a ledger reset by an earlier test file in this worker drops them.
+    for ledger, mod in ((jax_ledger, jax_mempool), (device_ledger, mempool)):
+        ledger.register_owner("mempool_shards", mod._pools_owned_bytes)
     before = [m.reconcile()["owners"].get("mempool_shards", 0) for m in (jax_ledger, device_ledger)]
     pools = [mod.PriorityMempool(shards=8) for mod in (jax_mempool, mempool)]
     for i in range(20):

@@ -114,3 +114,84 @@ def test_host_merkle_equals_jax_package_on_any_count():
             jax_host_merkle.hash_from_byte_slices(items[:n])
     with pytest.raises(ValueError):
         merkle_root_pow2(torch.zeros((3, 90), dtype=torch.uint8))
+
+
+# --- multiproofs and namespace proofs (nmt/proof.py, second half) ------------
+
+
+def _trees(n: int, seed: int):
+    """The same NMT of n leaves in both packages: namespaces in runs, a
+    parity tail, raw 48-byte leaves."""
+    from celestia_app_tpu.nmt.tree import NamespacedMerkleTree as JaxTree
+    from celestia_app_tpu_torch.nmt.tree import NamespacedMerkleTree
+
+    rng = np.random.default_rng(seed)
+    ns = np.sort(rng.integers(1, 6, n))
+    ours, theirs = NamespacedMerkleTree(), JaxTree()
+    for i in range(n):
+        namespace = (PARITY_NAMESPACE_BYTES if i >= n - n // 4 and n > 2
+                     else bytes(28) + bytes([int(ns[i])]))
+        leaf = namespace + rng.integers(0, 256, 48, dtype=np.uint8).tobytes()
+        ours.push(leaf)
+        theirs.push(leaf)
+    return ours, theirs
+
+
+@pytest.mark.parametrize("n,seed", [(2, 1), (8, 2), (16, 3), (64, 4)])
+def test_multiproofs_equal_jax(n, seed):
+    from celestia_app_tpu.nmt import proof as jax_proof
+    from celestia_app_tpu_torch.nmt import proof
+
+    ours, theirs = _trees(n, seed)
+    assert ours.root() == theirs.root()
+    rng = np.random.default_rng(seed)
+    cuts = sorted(set(int(c) for c in rng.integers(0, n + 1, 6)) | {0, n})
+    ranges = [(a, b) for a, b in zip(cuts, cuts[1:]) if rng.random() < 0.7] or [(0, n)]
+    levels = ours.levels()
+    mp = proof.multiproof_from_levels(levels, ranges)
+    want = jax_proof.multiproof_from_levels(theirs.levels(), ranges)
+    assert (mp.ranges, mp.nodes, mp.node_refs, mp.total) == \
+        (want.ranges, want.nodes, want.node_refs, want.total)
+    parts = proof.split_multiproof(mp)
+    for (s, e), part in zip(ranges, parts):
+        alone = proof.prove_range(ours, s, e)
+        assert (part.start, part.end, part.nodes, part.total) == \
+            (alone.start, alone.end, alone.nodes, alone.total)
+    leaves = [[ours._leaves[i] for i in range(s, e)] for s, e in ranges]
+    assert proof.verify_multiproof(ours.root(), mp, leaves)
+    assert jax_proof.verify_multiproof(theirs.root(), want, leaves)
+    bad = [list(x) for x in leaves]
+    bad[0][0] = bad[0][0][:-1] + bytes([bad[0][0][-1] ^ 1])
+    assert not proof.verify_multiproof(ours.root(), mp, bad)
+    assert not proof.verify_multiproof(ours.root(), mp, leaves[:-1] if len(leaves) > 1 else [])
+    broken = proof.NmtMultiProof(mp.ranges, mp.nodes, ((len(mp.nodes) + 5,),) * len(mp.ranges),
+                                 mp.total)
+    assert not proof.verify_multiproof(ours.root(), broken, leaves)
+    for args in ([(3, 2)], [(0, 2), (1, 3)], [], [(0, n + 1)]):
+        with pytest.raises(ValueError):
+            proof.multiproof_from_levels(levels, args)
+
+
+@pytest.mark.parametrize("n,seed", [(8, 5), (16, 6), (32, 7)])
+def test_namespace_proofs_equal_jax(n, seed):
+    from celestia_app_tpu.nmt import proof as jax_proof
+    from celestia_app_tpu_torch.nmt import proof
+
+    ours, theirs = _trees(n, seed)
+    root = ours.root()
+    queries = [bytes(28) + bytes([v]) for v in range(0, 8)] + [PARITY_NAMESPACE_BYTES]
+    for namespace in queries:
+        p, leaves = proof.prove_namespace(ours, namespace)
+        q, want_leaves = jax_proof.prove_namespace(theirs, namespace)
+        assert (p.start, p.end, p.nodes, p.total) == (q.start, q.end, q.nodes, q.total)
+        assert leaves == want_leaves
+        absence = None if leaves else ours.levels()[0][p.start]
+        got = proof.verify_namespace(root, p, namespace, leaves, absence)
+        assert got == jax_proof.verify_namespace(root, q, namespace, leaves, absence)
+        assert got
+        # Claiming a neighbour's namespace with this proof fails in both.
+        other = bytes(28) + bytes([(namespace[-1] + 1) % 256])
+        assert proof.verify_namespace(root, p, other, leaves, absence) == \
+            jax_proof.verify_namespace(root, q, other, leaves, absence)
+    p, leaves = proof.prove_namespace(ours, queries[2])
+    assert not proof.verify_namespace(root, p, queries[2], [], None)
