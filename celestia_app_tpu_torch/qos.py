@@ -56,8 +56,8 @@ The port's copy of celestia_app_tpu/qos.py, whole: the same parsing,
 buckets, refusals and payloads on the same clock.  The port enforces the
 write-path gate (`admit_tx`, from mempool.py) and the read-path gate
 (`admit_proof`, from serve/sampler.py's per-sample gate and
-serve/api.DasProvider's namespace queries); the HTTP faces (/healthz,
-/namespaces) come with the exposition (ROADMAP, queue 1 item 4).
+serve/api.DasProvider's namespace queries); its refusal is the exposition's
+429 on GET /das/*, and `health_block` its /healthz "qos" block.
 """
 
 from __future__ import annotations

@@ -10,12 +10,13 @@ JSON-RPC over HTTP. This package is that wire for the TPU framework:
   * `rpc.client.RemoteNode` — the client-side handle presenting the same
     node surface TxClient/txsim consume in-process, but over HTTP;
   * `rpc.gossip.ConsensusDriver` — the round machine over flood gossip
-    between ServingNodes (`ServingNode.enable_gossip_consensus`).
+    between ServingNodes (`ServingNode.enable_gossip_consensus`);
+  * `rpc.devnet` — a multi-process devnet: N validator processes with a
+    rotating proposer exchanging proposals over the wire.
 
-The port's copy of celestia_app_tpu/rpc/: `server`, `client`, `gossip`,
-`transport` and `codec`.  The multi-process devnet (`rpc.devnet`) waits for
-the daemon, and the gRPC and REST planes (`grpc_plane`, `api_gateway`) for
-the serving plane (ROADMAP, queue 1).
+The port's copy of celestia_app_tpu/rpc/: `server` (with its GET face and
+state sync), `client`, `gossip`, `transport`, `codec` and `devnet`.  The gRPC
+and REST planes (`grpc_plane`, `api_gateway`) come next (ROADMAP, queue 1).
 """
 
 # Lazy exports: ServingNode pulls in the full app stack; the client and

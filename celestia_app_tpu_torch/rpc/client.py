@@ -5,10 +5,8 @@ an in-process TestNode — chain_id / broadcast / query_account / tx_status /
 produce_block — but every call is an HTTP JSON-RPC round trip to a served
 node this process did not construct (and need not have imported).
 
-The port's copy of celestia_app_tpu/rpc/client.py; the port's TxClient and
-txsim drive it as they drive a TestNode.  The state-sync calls
-(`snapshots`, `snapshot_chunk`) are left out with the server's state sync
-(rpc/server.py).
+The port's copy of celestia_app_tpu/rpc/client.py, whole; the port's
+TxClient and txsim drive it as they drive a TestNode.
 """
 
 from __future__ import annotations
@@ -198,6 +196,13 @@ class RemoteNode:
         from celestia_app_tpu_torch.consensus import Commit
 
         return Commit.from_json(res)
+
+    # --- state sync -----------------------------------------------------------
+    def snapshots(self) -> list[dict]:
+        return self.call("snapshots")
+
+    def snapshot_chunk(self, height: int, index: int) -> str:
+        return self.call("snapshot_chunk", height=height, index=index)
 
     # --- proof queries (verify client-side against the fetched roots) --------
     def tx_inclusion_proof(self, height: int, tx_index: int):

@@ -26,14 +26,32 @@ height from the block store), the RPCs `get_share_proof`,
 provider and, under $CELESTIA_HEAL=1, a serve/heal.HealingEngine started
 with the server and closed in `stop`.  A refusal is a JSON-RPC error -32000
 naming it (`ShareWithheld: ...`, `BadProofDetected: ...`,
-`HealingInProgress: ...`), as in JAX.  Left out until their planes are
-ported (ROADMAP, queue 1):
-  * state sync (`_take_snapshot`, `rpc_snapshots`, `rpc_snapshot_chunk`,
-    `state_sync_from`): a nonzero `snapshot_interval` raises
-    NotImplementedError;
-  * the observability GET surface and its /healthz provider
-    (`health_snapshot`), and the exposition's DAS mount
-    (`register_das_provider`), which need trace/exposition.py.
+`HealingInProgress: ...`), as in JAX.  The GET face: `_Handler.do_GET`
+serves the shared observability surface (trace/exposition.py: /metrics,
+/healthz, /das/*, /device, /fleet, /timeline, ...), NodeServer registers the
+node's `health_snapshot` under /healthz "layers" as `node:<port>` and its
+DasProvider behind GET /das/*, and `stop` undoes both.  State sync: every
+`snapshot_interval` heights the commit path takes a snapshot (keep 2), served
+by `rpc_snapshots` / `rpc_snapshot_chunk`; `state_sync_from` restores a peer's
+snapshot into a staging store, checks it against the next height's +2/3
+Commit and swaps it in, then catches up the tail through `process_proposal`
+on this node's device.  The swap resets what the JAX swap resets and the
+operator-address cache, which is keyed by height.  One deliberate
+difference in state sync, because the JAX one forks once the supply is
+large: the App keeps its x/mint minter in memory, and its annual
+provisions were fixed from the supply at the first block of the inflation
+year, which a restored state cannot tell, so a JAX joiner mints a different
+provision at its first block (from a supply of about 1.7e14 utia up).  The
+port's snapshot metadata carries the minter (`"minter"`: inflation rate,
+annual provisions, previous block time) and the swap restores it; a
+snapshot without it (a JAX node's) restores as in JAX.  Since that
+metadata, like the block times the JAX metadata carries, is outside the
+state the Commit attests, the port also checks it before the swap: it
+executes the next height on a throwaway copy of the restored App and holds
+the app hash against the +2/3 Commit of the height after, so a forged
+minter (or a JAX snapshot on a chain large enough to fork) is refused
+instead of forking the joiner quietly.  A sync therefore needs the peer's
+tip two heights past the snapshot, where JAX needs one.
 Two deliberate differences, both because a device fault must stay visible:
 the commit hook's serve retention lets a device.DeviceFault out, after the
 block store and the Commit record are written, where the JAX node prints
@@ -44,6 +62,7 @@ a call on the card.
 
 from __future__ import annotations
 
+import copy
 import json
 import threading
 from contextlib import contextmanager
@@ -76,12 +95,11 @@ class ServingNode(TestNode):
         snapshot_interval: int = 0,
         device=None,
     ):
-        if snapshot_interval:
-            raise NotImplementedError(
-                "state-sync snapshots are not part of the port yet "
-                "(snapshot_interval must be 0)"
-            )
         super().__init__(genesis, keys, app=app, device=device)
+        # State-sync snapshots (reference: every 1500 blocks, keep 2,
+        # app/default_overrides.go:293-297).  0 = serving disabled.
+        self.snapshot_interval = snapshot_interval
+        self._snapshots: dict[int, dict] = {}
         from celestia_app_tpu_torch.crypto.keys import PrivateKey
 
         # This node's consensus key (signs prevotes/precommits). Defaults
@@ -334,6 +352,8 @@ class ServingNode(TestNode):
                     # Bound the evidence pool (Tendermint prunes expired evidence).
                     for h in [h for h in self._witnessed if h < height - 100]:
                         del self._witnessed[h]
+                    if self.snapshot_interval and height % self.snapshot_interval == 0:
+                        self._take_snapshot(height)
         return results
 
     # --- the proof-serving plane (serve/) ------------------------------------
@@ -463,6 +483,45 @@ class ServingNode(TestNode):
         payload = self.das_provider().attestation_payload(int(height), samples)
         count_served("jsonrpc", "attestation", payload)
         return payload
+
+    # --- state-sync snapshots -------------------------------------------------
+    SNAPSHOT_CHUNK_BYTES = 512 * 1024
+
+    def _take_snapshot(self, height: int) -> None:
+        import hashlib
+
+        state = self.app.cms.export(height)
+        blob = json.dumps(
+            {k.hex(): v.hex() for k, v in sorted(state.items())},
+            separators=(",", ":"),
+        ).encode()
+        chunks = [
+            blob[i: i + self.SNAPSHOT_CHUNK_BYTES]
+            for i in range(0, max(len(blob), 1), self.SNAPSHOT_CHUNK_BYTES)
+        ]
+        self._snapshots[height] = {
+            "height": height,
+            "app_hash": self.app.cms.last_app_hash.hex(),
+            "app_version": self.app.app_version,  # post-commit (resume needs it)
+            "chain_id": self.chain_id,
+            # Mint provisions derive from (genesis time, last block time,
+            # supply); both times must restore exactly or the synced node's
+            # first minted block diverges from every other validator.
+            "genesis_time_ns": self.app.genesis_time_ns,
+            "block_time_ns": self.app.last_block_time_ns,
+            # ... and so must the minter, which the App keeps in memory: its
+            # annual provisions were fixed from the supply at the first block
+            # of the inflation year, which the restored state cannot tell.
+            "minter": {
+                "inflation_rate": str(self.app.minter.inflation_rate.raw),
+                "annual_provisions": str(self.app.minter.annual_provisions.raw),
+                "previous_block_time_ns": self.app.minter.previous_block_time_ns,
+            },
+            "chunks": chunks,
+            "chunk_hashes": [hashlib.sha256(c).hexdigest() for c in chunks],
+        }
+        for h in sorted(self._snapshots)[:-2]:  # keep 2
+            del self._snapshots[h]
 
     def _produce_and_replicate(self, produce_time_ns: int | None = None):
         """One voting round per height (celestia-core's consensus shape,
@@ -740,6 +799,65 @@ class ServingNode(TestNode):
                 break
             else:
                 raise ValueError(f"cannot catch up: no peer serves block {h}")
+
+    # --- /healthz layer snapshot ---------------------------------------------
+    def health_snapshot(self) -> dict:
+        """Per-layer staleness for /healthz (trace/exposition.py): last
+        block height and wall-clock age, mempool depth, peer count, and
+        (when gossip consensus runs) the live round coordinates.
+
+        The probe must never hang behind block production — a first
+        kernel build or a k=512 extend can hold the node lock for seconds,
+        which is exactly when an orchestrator most needs the probe to
+        answer — so the lock is taken with a short timeout and contention
+        itself becomes the report (best-effort unlocked reads are safe:
+        ints and container sizes, no invariants).
+
+        `last_square` (height, k, occupancy of the most recent square
+        build/construct, from trace/square_journal.py) distinguishes a
+        node stuck producing empty blocks (height advances, occupancy
+        pinned at 0) from a healthy idle one (no recent square at all, or
+        mempool empty).  Process-level, like the metrics registry: in a
+        multi-node test process it reflects the last square ANY node
+        built."""
+        import time
+
+        from celestia_app_tpu_torch.trace import square_journal
+
+        out: dict = {
+            "height": self.app.height,
+            "block_age_s": (
+                round(time.time() - self.last_commit_walltime, 3)
+                if self.last_commit_walltime is not None else None
+            ),
+            "mempool": {
+                "txs": len(self.mempool),
+                "bytes": self.mempool.size_bytes(),
+            },
+            "peers": len(self.peer_urls),
+            "last_square": square_journal.last_square(),
+            # The serve plane's cache: resident heights per tier, hit
+            # ratio, last eviction — a proof plane stuck at cold (all
+            # misses, nothing resident while heights commit) is one
+            # probe away, byte-identical on every plane like the rest
+            # of /healthz.  Always ForestCache.stats() — one source of
+            # the block's shape; a never-touched cache is trivially
+            # cheap to instantiate and reports its true empty state.
+            "serve": self.serve_cache.stats(),
+        }
+        if not self.lock.acquire(timeout=0.25):
+            out["lock_contended"] = True
+            return out
+        try:
+            driver = getattr(self, "consensus_driver", None)
+            if driver is not None and driver.machine is not None:
+                m = driver.machine
+                out["consensus"] = {
+                    "height": m.height, "round": m.round, "step": m.step,
+                }
+        finally:
+            self.lock.release()
+        return out
 
     # --- JSON-safe RPC methods (the HTTP surface) -----------------------------
     def rpc_status(self) -> dict:
@@ -1045,6 +1163,150 @@ class ServingNode(TestNode):
                 }
             return out
 
+    # --- state-sync serving ---------------------------------------------------
+    def rpc_snapshots(self) -> list[dict]:
+        """Available snapshot metadata (newest last), chunks elided."""
+        with self.lock:
+            return [
+                {k: v for k, v in snap.items() if k != "chunks"}
+                for _, snap in sorted(self._snapshots.items())
+            ]
+
+    def rpc_snapshot_chunk(self, height: int, index: int) -> str:
+        with self.lock:
+            snap = self._snapshots.get(height)
+            if snap is None:
+                raise ValueError(f"no snapshot at height {height}")
+            return snap["chunks"][index].hex()
+
+    def state_sync_from(
+        self, peer_url: str, trusted_validators: dict | None = None
+    ) -> int:
+        """Join the chain from a peer's snapshot instead of replaying every
+        block (the reference's state sync): fetch + hash-verify chunks,
+        restore into a STAGING store, recompute the app hash from the
+        restored data, verify the NEXT height's Commit — its precommits
+        sign block_id(data_root, prev_app_hash), so +2/3 of the validator
+        power attests exactly the app hash we restored — and only then
+        swap the state in and catch up the tail.  Returns the height
+        joined at.
+
+        Trust root: the commit is checked against `trusted_validators`
+        (address -> (PublicKey, power)) or, by default, this node's OWN
+        pre-sync validator set and chain id (its genesis) — never against
+        anything the untrusted snapshot carries.  If the real valset has
+        drifted past the joiner's genesis, the operator supplies the
+        trusted set explicitly (Tendermint state sync's light-block trust
+        assumption)."""
+        import hashlib
+
+        from celestia_app_tpu_torch.consensus import ConsensusError, verify_commit
+        from celestia_app_tpu_torch.rpc.client import RemoteNode
+        from celestia_app_tpu_torch.state.store import CommitStore
+
+        with self.lock:
+            trusted = trusted_validators or self._validator_set()
+            trusted_chain_id = self.chain_id
+        peer = RemoteNode(peer_url, timeout=30.0, defer_status=True)
+        metas = peer.snapshots()
+        if not metas:
+            raise ValueError(f"peer {peer_url} serves no snapshots")
+        meta = metas[-1]
+        height = meta["height"]
+        if meta["chain_id"] != trusted_chain_id:
+            raise ConsensusError(
+                f"snapshot is for chain {meta['chain_id']!r}, "
+                f"this node trusts {trusted_chain_id!r}"
+            )
+        blob = b""
+        for i, want in enumerate(meta["chunk_hashes"]):
+            chunk = bytes.fromhex(peer.snapshot_chunk(height, i))
+            if hashlib.sha256(chunk).hexdigest() != want:
+                raise ValueError(f"snapshot chunk {i} hash mismatch")
+            blob += chunk
+        state = {
+            bytes.fromhex(k): bytes.fromhex(v) for k, v in json.loads(blob).items()
+        }
+        # Staging: nothing touches self.app until every check passes.
+        cms = CommitStore()
+        cms._committed[height] = state
+        cms.load_height(height)  # recomputes the root from the data
+        if cms.last_app_hash.hex() != meta["app_hash"]:
+            raise ValueError("restored state does not match snapshot app hash")
+        # Trust link: the next height's commit must attest this app hash,
+        # signed by the TRUSTED validator set.
+        commit = peer.commit(height + 1)
+        if commit is None or commit.prev_app_hash != cms.last_app_hash:
+            raise ConsensusError(
+                f"commit at height {height + 1} does not attest the restored "
+                "app hash"
+            )
+        if not verify_commit(trusted, trusted_chain_id, commit):
+            raise ConsensusError(f"invalid commit at height {height + 1}")
+        # The metadata past the app hash (block times, app version, minter)
+        # is outside the attested state: execute the next height on a
+        # throwaway copy of the restored App, with its own store, and hold
+        # the result against the +2/3 Commit of the height after.  The copy
+        # shares only configuration and memos with this node's App, which
+        # Finalize and Commit do not touch; its Finalize counts the height's
+        # txs in this process's delivered-tx counter, as the catch-up will.
+        after = peer.commit(height + 2)
+        if after is None:
+            raise ConsensusError(
+                f"no commit at height {height + 2} yet to check the snapshot's "
+                "metadata against"
+            )
+        if not verify_commit(trusted, trusted_chain_id, after):
+            raise ConsensusError(f"invalid commit at height {height + 2}")
+        b = peer.block(height + 1)
+        probe_cms = CommitStore()
+        probe_cms._committed[height] = dict(state)
+        probe_cms.load_height(height)
+        with self.lock:
+            probe = copy.copy(self.app)
+            self._restore_into(probe, probe_cms, height, meta)
+        signers = b.get("last_commit_signers")
+        probe.finalize_block(
+            b["time_ns"], [bytes.fromhex(t) for t in b["txs"]],
+            last_commit_signers=set(signers) if signers is not None else None,
+            evidence=self._parse_evidence(b.get("evidence") or []),
+        )
+        if probe.commit() != after.prev_app_hash:
+            raise ConsensusError(
+                f"commit at height {height + 2} does not attest height "
+                f"{height + 1} executed from the snapshot's metadata"
+            )
+        with self.lock:
+            self._restore_into(self.app, cms, height, meta)
+            self._operator_cache = None  # keyed by height
+        if not self.peer_urls:
+            self.peer_urls = [peer_url]
+            self._peers = []
+        self._catch_up(peer.status()["height"])
+        return height
+
+    def _restore_into(self, app, cms, height: int, meta: dict) -> None:
+        """Set `app`'s state to the restored `cms` at `height` and the
+        snapshot's metadata: what the JAX swap resets, and the minter where
+        the metadata carries one (else a copy of this node's own)."""
+        from celestia_app_tpu_torch.modules.mint.minter import Minter
+        from celestia_app_tpu_torch.state.dec import Dec
+
+        if "minter" in meta:  # a JAX node's snapshot carries none
+            m = meta["minter"]
+            minter = Minter(Dec(int(m["inflation_rate"])), Dec(int(m["annual_provisions"])),
+                            previous_block_time_ns=m["previous_block_time_ns"])
+        else:
+            minter = copy.deepcopy(self.app.minter)
+        app.cms = cms
+        app.height = height
+        app.app_version = meta["app_version"]
+        app.chain_id = meta["chain_id"]
+        app.genesis_time_ns = meta["genesis_time_ns"]
+        app.last_block_time_ns = meta["block_time_ns"]
+        app._check_state = None
+        app.minter = minter
+
     def rpc_tx_inclusion_proof(self, height: int, tx_index: int) -> dict:
         from celestia_app_tpu_torch.proof.querier import query_tx_inclusion_proof
 
@@ -1207,6 +1469,28 @@ class _Handler(BaseHTTPRequestHandler):
     def log_message(self, fmt, *args):  # quiet: tests parse stdout
         pass
 
+    def do_GET(self):
+        """GET /metrics + /trace_tables[/<name>] + /healthz + /das/* + ...:
+        the shared observability surface (trace/exposition.py — the
+        Tendermint instrumentation analog, test/e2e/testnet/setup.go:24,
+        and the pkg/trace table puller, node.go:52-74).  Every serving
+        plane mounts the same handler, so the exposition is byte-identical.
+        An `x-celestia-trace` header is ADOPTED (same trace_id, fresh
+        span_id, this node's node_id) so remote DAS fetches stitch."""
+        from celestia_app_tpu_torch.trace.exposition import (
+            handle_observability_get_adopted,
+            send_observability_404,
+            send_observability_response,
+        )
+
+        resp = handle_observability_get_adopted(
+            self, plane="jsonrpc", node_id=self.node_id
+        )
+        if resp is None:
+            send_observability_404(self)
+            return
+        send_observability_response(self, resp)
+
     def do_POST(self):
         try:
             length = int(self.headers.get("Content-Length", "0"))
@@ -1310,7 +1594,18 @@ class NodeServer:
         self.url = f"http://{host}:{self.port}"
         self._threads: list[threading.Thread] = []
         self._stop = threading.Event()
-        # The node's DAS surface and, under $CELESTIA_HEAL=1, the
+        # One stable bound-method object: unregistration compares by
+        # identity, and attribute access mints a fresh bound method.  The
+        # name carries the port so a multi-node process reports every
+        # node, not just the last one constructed.
+        self._health_provider = getattr(node, "health_snapshot", None)
+        self._health_name = f"node:{self.port}"
+        if self._health_provider is not None:
+            from celestia_app_tpu_torch.trace.exposition import register_health_provider
+
+            register_health_provider(self._health_name, self._health_provider)
+        # The node's DAS surface behind GET /das/* (the shared handler; the
+        # last-registered node answers) and, under $CELESTIA_HEAL=1, the
         # detect -> repair -> re-serve loop (serve/heal.py): detections on
         # this node's sampler start a repair and a root-verified
         # re-admission on the healer's thread.
@@ -1318,8 +1613,10 @@ class NodeServer:
         self._healer = None
         if hasattr(node, "das_provider"):
             from celestia_app_tpu_torch.serve import heal
+            from celestia_app_tpu_torch.trace.exposition import register_das_provider
 
             self._das_provider = node.das_provider()
+            register_das_provider(self._das_provider)
             if heal.heal_enabled():
                 self._healer = heal.HealingEngine(self._das_provider, name=f"node:{self.port}")
 
@@ -1348,12 +1645,22 @@ class NodeServer:
                 print(f"proposer loop error: {e}", file=sys.stderr)
 
     def stop(self):
-        """Stop the healer, the driver's timers, the HTTP server (waiting for
-        requests in flight), the proposer loop and the gossip pool, in that
-        order: no thread of this server outlives it."""
+        """Unmount the health and DAS providers, stop the healer, the
+        driver's timers, the HTTP server (waiting for requests in flight),
+        the proposer loop and the gossip pool, in that order: no thread of
+        this server outlives it."""
+        from celestia_app_tpu_torch.trace.exposition import (
+            unregister_das_provider,
+            unregister_health_provider,
+        )
+
         self._stop.set()
+        if self._health_provider is not None:
+            unregister_health_provider(self._health_name, self._health_provider)
         if self._healer is not None:
             self._healer.close()
+        if self._das_provider is not None:
+            unregister_das_provider(self._das_provider)
         driver = getattr(self.node, "consensus_driver", None)
         if driver is not None:
             driver.stop()

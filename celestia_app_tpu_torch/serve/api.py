@@ -3,9 +3,9 @@
 Byte-equal responses are structural when all planes call one renderer,
 never a test invariant to chase.  The JSON-RPC POST methods of
 rpc/server.py (GetShareProof, GetSharesByNamespace, GetAttestation) carry
-these payload dicts; the GET routes of the JAX package's exposition, REST
-gateway and gRPC plane serve the same `render()` bytes and come with those
-planes (ROADMAP, queue 1 item 4).
+these payload dicts, and the GET /das/* routes of trace/exposition.py serve
+the same `render()` bytes (the REST gateway and the gRPC plane come with
+their planes, ROADMAP queue 1).
 
 Payloads are a pure function of chain state (height, coordinates, the
 committed proofs) — cache tier, timing, and plane never leak in, so two

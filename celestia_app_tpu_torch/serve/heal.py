@@ -60,7 +60,7 @@ NodeServer wire and start one automatically (rpc/server.py).
 
 The port's copy of celestia_app_tpu/serve/heal.py.  `heal_payload` and
 `heal_health_block` are the bodies of `GET /heal` and the /healthz "heal"
-block; the routes come with the exposition (ROADMAP, queue 1 item 4).  Two
+block of the port's exposition (trace/exposition.py).  Two
 differences:
 
   * The gather stays on the card: the served square's tensor, the

@@ -14,10 +14,11 @@
   flight_recorder.py the anomaly black box (`note_trigger`, bundles).
   timeline.py   the height timeline: every plane's rows stitched per height,
                 its critical path.
+  exposition.py the shared HTTP GET surface (/metrics, /healthz, /das/*,
+                /device, /fleet, /timeline, ...) every serving plane mounts.
+  fleet.py      the fleet aggregator: one merged view over N peers' scrapes.
 
-The JAX package's trace layer (celestia_app_tpu/trace/) also has the
-exposition (the HTTP GET surface) and the fleet plane; they come next
-(ROADMAP, queue 1 item 4).
+The port's copy of celestia_app_tpu/trace/, every module of it.
 """
 
 from celestia_app_tpu_torch.trace.context import (

@@ -37,8 +37,7 @@ unattributed residual; a residual that GROWS for
 `$CELESTIA_DEVICE_LEAK_TICKS` consecutive reconciliations is the leak
 signature and fires the `device_residual_growth` flight trigger.
 
-Exposition (the registry; the /device HTTP face, `device_response`, comes
-with the serving plane):
+Exposition:
 
     celestia_jit_programs_resident{family}        gauge
     celestia_jit_compile_seconds_total{family}    counter
@@ -46,6 +45,12 @@ with the serving plane):
     celestia_device_bytes{owner}                  gauge (+ the
                                                   unattributed_residual
                                                   pseudo-owner)
+
+    GET /device                                   ledger table + ownership
+                                                  + applied seats + warmup
+                                                  state (`device_response`,
+                                                  trace/exposition.py),
+                                                  merged into /fleet
 
 `device_payload()` is the canonical JSON of `snapshot()`, refreshed at
 most once per `$CELESTIA_DEVICE_TICK_S` (default 0 = every call), and
@@ -71,6 +76,7 @@ __all__ = [
     "reconcile",
     "snapshot",
     "device_payload",
+    "device_response",
     "_reset_for_tests",
 ]
 
@@ -508,6 +514,11 @@ def device_payload() -> bytes:
         _LAST_TICK = now
         _CACHED_BODY = body
     return body
+
+
+def device_response():
+    """GET /device for trace/exposition.handle_observability_get."""
+    return 200, "application/json", device_payload()
 
 
 def _hook_snapshot_dump() -> None:

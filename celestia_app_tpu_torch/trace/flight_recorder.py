@@ -46,15 +46,14 @@ the recorder entirely (the default — tests and embedded uses opt in).
 path, worker-death handlers, and WAL replay — a diagnostic layer that
 can take down the thing it is diagnosing is worse than no layer at all.
 
-The port of celestia_app_tpu/trace/flight_recorder.py.  The bundle holds
-the sections whose planes the port has: the trace tables, the SLO payload,
-the degradation state (`degraded`: chaos.degrade.degraded_state), the chaos
+The port of celestia_app_tpu/trace/flight_recorder.py, whole.  The bundle
+holds every section of the JAX bundle: the probe's view (`healthz`:
+trace/exposition.health_payload), the trace tables, the SLO payload, the
+degradation state (`degraded`: chaos.degrade.degraded_state), the chaos
 spec, the namespace labels, the DAS coverage summary (`coverage`:
 serve/api.coverage_snapshot), the device ledger's fresh snapshot
 (`device`: trace/device_ledger.snapshot) and the height timeline
-(`timeline`: trace/timeline).  One section of the JAX bundle waits for the
-exposition (ROADMAP, queue 1 item 4): `healthz`
-(trace/exposition.health_payload).  `peer_bundle_index` is whole.
+(`timeline`: trace/timeline).
 """
 
 from __future__ import annotations
@@ -248,6 +247,7 @@ def capture(trigger: str, context: dict | None = None) -> dict:
     from celestia_app_tpu_torch.trace import slo, square_journal
     from celestia_app_tpu_torch.trace.context import node_id
     from celestia_app_tpu_torch.trace.device_ledger import snapshot as device_snapshot
+    from celestia_app_tpu_torch.trace.exposition import health_payload
     from celestia_app_tpu_torch.trace.timeline import timeline
     from celestia_app_tpu_torch.trace.tracer import traced
 
@@ -261,6 +261,7 @@ def capture(trigger: str, context: dict | None = None) -> dict:
         "captured_unix_ns": time.time_ns(),
         "pid": os.getpid(),
         "node_id": node_id(),
+        "healthz": health_payload(),
         "slo": slo.engine().payload(),
         "degraded": degraded_state(),
         "chaos_spec": getattr(inj, "raw", "") if inj is not None else "",

@@ -52,7 +52,8 @@ The port's copy of celestia_app_tpu/trace/slo.py: the same specs, windows,
 burn rates, states and payloads on the same registry.  A fast-burn page
 captures a `slo_fast_burn` flight-recorder bundle, and the block journal
 (trace/journal.record) calls `maybe_tick` on every row, as in the JAX
-package.  The /slo and /healthz HTTP faces come with the serving plane.
+package.  The port's exposition serves it as GET /slo and the /healthz
+"slo" block.
 """
 
 from __future__ import annotations

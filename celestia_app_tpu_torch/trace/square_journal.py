@@ -35,10 +35,9 @@ distinguishable from a healthy idle one.  Both are process-level views
 (a multi-node test process shares them), like the rest of the registry.
 
 The port's copy of celestia_app_tpu/trace/square_journal.py, whole: the
-same labels, rows, counters and payloads on the same squares.  The port has
-no exposition or lint script yet (ROADMAP, queue 1 item 4), so nothing
-serves `namespaces_payload` or `last_square` over HTTP; callers read them
-directly.
+same labels, rows, counters and payloads on the same squares, served by the
+port's exposition (GET /namespaces, and `last_square` in the node's
+/healthz layer).
 """
 
 from __future__ import annotations

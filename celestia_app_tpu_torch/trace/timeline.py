@@ -60,9 +60,9 @@ Everything here is a pure function of retained row state: no ticks, no
 clocks at render time, so two planes asked in any order serve identical
 bytes (the /heal pattern).
 
-The port's copy of celestia_app_tpu/trace/timeline.py, whole.  The HTTP
-route `/timeline` and the fleet plane that call `timeline_response` and
-`fleet_block` wait for the exposition (ROADMAP, queue 1 item 4).  The port's
+The port's copy of celestia_app_tpu/trace/timeline.py, whole;
+`timeline_response` answers the port's `GET /timeline` (trace/exposition.py)
+and `fleet_block` gives each host's block of its /fleet.  The port's
 `compile_bill` rows bill a tracked program's first call (the kernel
 libraries' load, a first build), which keeps the JAX phase name
 `jit_compile`.

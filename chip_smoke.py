@@ -51,10 +51,18 @@ Phases, in order; any failure raises and the script exits non-zero:
              a fault past the ladder's floor: no verdict), proof_fail
              retried on the card, and a k=128 ServingNode's three DAS RPCs
              over HTTP with its healer repairing a withheld height;
-  9. uploads the one-shot calls' staged (pinned) host-to-device copy against a
+  9. ops     the node's operator plane: the HTTP GET surface over the k=512
+             square (/das bodies over HTTP == the host lowering, /device
+             from device_memory_stats, /healthz, /metrics, a device fault
+             answered 500), state sync of a k=128 chain to a joiner on the
+             card (its catch-up through rs_dense and both SHA-256 kernels,
+             app hash == the source's == a CPU replay), the fleet over the
+             two nodes and a stopped URL, and a 3-process devnet on the card
+             (the phase's docstring says what it checks);
+ 10. uploads the one-shot calls' staged (pinned) host-to-device copy against a
              pageable one, in turns: the upload alone and extend_shares at
              k=128 and 512, and the k=512 repair;
- 10. stream  stream_blocks at k=128 (leopard, 32 squares, batch 1 and 4) and
+ 11. stream  stream_blocks at k=128 (leopard, 32 squares, batch 1 and 4) and
              k=512 (vandermonde, 8 squares, batch 1), depth 2: every data root
              equal to a one-shot compute, squares per second beside the
              one-shot time, launches per dispatch (counted per batch from the
@@ -64,7 +72,7 @@ Phases, in order; any failure raises and the script exits non-zero:
              built on the default stream while the pipeline runs, equal to
              the one-shot forests; a speculation hit and a discard; the
              ring's swap of a pinned slot;
- 11. faults  the device fault plane (chaos/degrade.py): the degradation
+ 12. faults  the device fault plane (chaos/degrade.py): the degradation
              ladder walked rung by rung at k=512 under $CELESTIA_CHAOS specs
              (fused_epi -> fused -> staged -> host, each rung's journal row
              and launches, on the dense and the XOR core), real launch
@@ -73,8 +81,8 @@ Phases, in order; any failure raises and the script exits non-zero:
              sentinel's drills, warm-up's cold and warm first calls, the
              device ledger and the bridge backend's fall-back (the phase's
              docstring says what it checks);
- 12. commitments, 13. app, 14. chain, 15. node, 16. consensus, 17. querier,
- 18. bridge: the consensus-side entry points, the ABCI App's CheckTx /
+ 13. commitments, 14. app, 15. chain, 16. node, 17. consensus, 18. querier,
+ 19. bridge: the consensus-side entry points, the ABCI App's CheckTx /
              PrepareProposal / ProcessProposal among them, two k=128
              heights of Prepare -> Process -> FinalizeBlock -> Commit, the
              in-process node (TestNode, Network, txsim) broadcasting two
@@ -84,7 +92,7 @@ Phases, in order; any failure raises and the script exits non-zero:
              one with a dead proposer and one with an injected launch fault
              that outlasts the ladder (each phase's docstring says what it
              checks);
- 19. giant   k=1024 and k=2048 (GF(2^16)): the materializing fused, epi and
+ 20. giant   k=1024 and k=2048 (GF(2^16)): the materializing fused, epi and
              XOR lowerings and the panel-streamed one ($CELESTIA_PIPE_PANEL:
              64-row panels, 48-row panels at k=1024, the FFT column leg):
              one data root and one EDS per k, the roots-only twins, 64
@@ -92,7 +100,7 @@ Phases, in order; any failure raises and the script exits non-zero:
              lowering as counted from the code, wall and device time and
              peak memory per lowering, a k=1024 BlockPipeline under panel
              mode (batch 1, 16 panels per square);
- 20. mesh    the multi-device plane on 4 logical shards of cuda:0, each with
+ 21. mesh    the multi-device plane on 4 logical shards of cuda:0, each with
              its own stream (and again over the real cards where there are
              two or more): the k=512 sharded extend over 2 and 4 shards and
              its DAH-only twin == single-card compute, sharded repair with
@@ -1379,6 +1387,462 @@ def phase_serve(torch, eds, card: str) -> dict:
         degrade.reset_for_tests()
     if heal.engines():
         raise AssertionError(f"a healer outlived its server: {heal.engines()}")
+    return out
+
+
+OPS_SAMPLES = 64
+OPS_ATTESTATION = 64
+OPS_SNAPSHOT_INTERVAL = 4
+OPS_HEIGHTS = 10
+OPS_LAST_SNAPSHOT = OPS_HEIGHTS // OPS_SNAPSHOT_INTERVAL * OPS_SNAPSHOT_INTERVAL
+OPS_DEVNET = 3
+OPS_DEVNET_HEIGHT = 3
+
+
+def http_get(url: str) -> tuple[int, dict, bytes]:
+    """(status, headers, body) of one GET; an HTTP error status is returned,
+    not raised."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=120) as resp:
+            return resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def ops_chain_txs(node, keys, height: int) -> list[bytes]:
+    """The txs of `node`'s next height: none at odd heights; at even ones
+    APP_BLOCK's sends, with its PFBs too (a k=128 block, as phase_chain
+    builds them) only past the last snapshot, where the catch-up runs it."""
+    from celestia_app_tpu_torch.testutil.blocks import block_txs, next_sequences
+
+    if height % 2:
+        return []
+    return block_txs(keys, node.app.chain_id, seed=APP_BLOCK["seed"] + height,
+                     sends=APP_BLOCK["sends"],
+                     pfbs=APP_BLOCK["pfbs"] if height > OPS_LAST_SNAPSHOT else 0,
+                     blob_shares=APP_BLOCK["blob_shares"],
+                     sequences=next_sequences(node.app, keys))
+
+
+def phase_ops(torch, eds, card: str) -> dict:
+    """The node's operator plane on the card (trace/exposition.py,
+    trace/fleet.py, rpc/server.py's GET face and state sync, rpc/devnet.py):
+      1. the GET surface at k=512: a DasProvider over phase_das's square,
+         registered with the exposition and mounted by serve_observability;
+         OPS_SAMPLES GET /das/share_proof per axis, 2 GET /das/shares and one
+         OPS_ATTESTATION-sample GET /das/attestation over HTTP, each body ==
+         render() of the provider's payload and == the host lowering's bytes,
+         verifying against the root on the card; ms per GET; the launches of
+         one gated GET ($CELESTIA_SERVE_VERIFY=1); /device reads
+         device_memory_stats with a nonzero peak and the serve_forest_cache
+         owner, /healthz says SERVING, /metrics parses through
+         fleet.parse_prometheus_text and counts the GETs; under proof_fail=1.0
+         a GET answers 500 naming DeviceFault;
+      2. state sync at k=APP_K: a source ServingNode on the card with
+         snapshot_interval=OPS_SNAPSHOT_INTERVAL commits OPS_HEIGHTS heights
+         on APP_BLOCK's 256-key genesis, sends at the even heights, the even
+         ones past the last snapshot APP_BLOCK's k=128 blocks; with its serve
+         cache emptied and every rung faulted, GET /das of height 2 (not
+         the App's last square, so the GET extends it again) over its HTTP
+         answers 500 naming DeviceFault and /healthz then says DEGRADED; a joiner on the card syncs (fetch, restore, verify,
+         catch-up timed apart; the rest is the metadata check) and its
+         catch-up launches rs_dense, sha256_leaf and sha256 (counted per tail
+         block); its app hash == the source's == a CPU TestNode's replay; it
+         produces one more height, which the source applies to the same app
+         hash; a tampered chunk and a forged minter are refused;
+      3. the fleet: GET /fleet over the source, the joiner and a stopped URL:
+         2 reachable hosts, each with a device block (device_memory_stats),
+         the dead one marked;
+      4. the devnet: spawn_devnet(OPS_DEVNET) validator processes on the card
+         after the parent's one build, run to height >= OPS_DEVNET_HEIGHT,
+         then a send broadcast to validator 0 and committed: equal blocks
+         and Commit-attested app hashes across the three, each child's
+         /device from device_memory_stats, /fleet over them 3 reachable
+         hosts; each child's own launches across the send's height (from
+         the reports in its log) include rs_dense, sha256_leaf and sha256; a
+         child that dies fails the phase with its log.
+    Returns the launches of one gated GET, per catch-up block and, per
+    child, across the devnet height that holds the send."""
+    import copy
+    import urllib.parse
+
+    from celestia_app_tpu_torch import chaos, consensus
+    from celestia_app_tpu_torch.chaos import degrade
+    from celestia_app_tpu_torch.kernels import _build
+    from celestia_app_tpu_torch.proof.share_proof import (
+        new_share_inclusion_proof,
+        ods_namespace_range,
+    )
+    from celestia_app_tpu_torch.rpc import devnet
+    from celestia_app_tpu_torch.rpc.client import RemoteNode
+    from celestia_app_tpu_torch.rpc.codec import (
+        share_proof_from_json,
+        share_proofs_from_attestation,
+        to_jsonable,
+    )
+    from celestia_app_tpu_torch.rpc.server import ServingNode, serve
+    from celestia_app_tpu_torch.serve import ForestCache
+    from celestia_app_tpu_torch.serve.api import DasProvider, render
+    from celestia_app_tpu_torch.serve.verify import verify_proofs
+    from celestia_app_tpu_torch.state.store import CommitStore
+    from celestia_app_tpu_torch.testutil import TestNode, deterministic_genesis, funded_keys
+    from celestia_app_tpu_torch.testutil.blocks import block_txs
+    from celestia_app_tpu_torch.trace import exposition, fleet
+    from celestia_app_tpu_torch.tx import tx_hash
+
+    k = eds.k
+    n = 2 * k
+    out: dict = {}
+
+    # 1. The GET surface at k=512.
+    prov = DasProvider(cache=ForestCache(heights=2, spill=1))
+    prov.cache.put(1, eds)
+    entry = prov.entry(1)
+    root = entry.data_root
+    exposition.register_das_provider(prov)
+    obs = exposition.serve_observability(node_id="ops")
+    try:
+        def host_payload(row, col, axis):
+            return render({"height": 1, "row": row, "col": col, "axis": axis, "square_size": k,
+                           "proof": to_jsonable(prov.sampler.host_proof(entry, row, col, axis)),
+                           "data_root": root.hex()})
+
+        rng = np.random.default_rng(516)
+        served = 0
+        for axis in ("row", "col"):
+            coords = [tuple(int(v) for v in c) for c in rng.integers(0, n, (OPS_SAMPLES, 2))]
+            bodies, ms = [], []
+            for r, c in coords:
+                t0 = time.perf_counter()
+                status, _, body = http_get(
+                    f"{obs.url}/das/share_proof?height=1&row={r}&col={c}&axis={axis}")
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if status != 200:
+                    raise AssertionError(f"GET share_proof ({r}, {c}) {axis}: {status} {body[:200]}")
+                bodies.append(body)
+            served += len(coords)
+            for (r, c), body in zip(coords, bodies):
+                if body != render(prov.share_proof_payload(1, r, c, axis=axis)) or \
+                        body != host_payload(r, c, axis):
+                    raise AssertionError(f"GET share_proof ({r}, {c}) axis={axis} != the "
+                                         f"provider's render or the host lowering")
+            proofs = [share_proof_from_json(json.loads(b)["proof"]) for b in bodies]
+            if not all(verify_proofs(proofs, root)):
+                raise AssertionError(f"a GET share_proof axis={axis} does not verify")
+            log(f"[{card}] ops k={k}: {OPS_SAMPLES} GET /das/share_proof axis={axis} over HTTP, "
+                f"median {float(np.median(ms)):.3f} ms, min {min(ms):.3f}, max {max(ms):.3f} "
+                f"ms per GET; each body == the provider's render == the host lowering's bytes, "
+                f"all verify on the card")
+        ods_ns = eds.ods_namespaces()
+        for i in (3 * k + 5, (k - 7) * k + 17):
+            ns = ods_ns[i].tobytes()
+            t0 = time.perf_counter()
+            status, _, body = http_get(f"{obs.url}/das/shares?height=1&namespace={ns.hex()}")
+            ms = (time.perf_counter() - t0) * 1e3
+            served += 1
+            payload = json.loads(body)
+            lo, hi = ods_namespace_range(eds, ns)
+            host_eds = copy.copy(eds)  # no forest: the proof from host trees
+            host_eds._forest, host_eds._tree_memo = None, {}
+            if status != 200 or body != render(prov.shares_payload(1, ns.hex())) or \
+                    payload["proof"] != to_jsonable(new_share_inclusion_proof(host_eds, lo, hi)) \
+                    or not share_proof_from_json(payload["proof"]).verify(root):
+                raise AssertionError(f"GET /das/shares {ns.hex()}: {status}, != the host trees' "
+                                     f"proof or unverified")
+            log(f"[{card}] ops k={k}: GET /das/shares {len(body)} bytes in {ms:.3f} ms == the "
+                f"host trees' proof, verified")
+        samples = sorted({(int(r), int(c), str(a)) for (r, c), a in zip(
+            rng.integers(0, n, (OPS_ATTESTATION, 2)),
+            rng.choice(["row", "col"], OPS_ATTESTATION))})
+        spec = ",".join(f"{r}:{c}:{a}" for r, c, a in samples)
+        t0 = time.perf_counter()
+        status, _, body = http_get(f"{obs.url}/das/attestation?height=1&"
+                                   f"samples={urllib.parse.quote(spec)}")
+        ms = (time.perf_counter() - t0) * 1e3
+        served += 1
+        att = json.loads(body)
+        rebuilt = share_proofs_from_attestation(att)
+        if status != 200 or body != render(prov.attestation_payload(1, spec)):
+            raise AssertionError(f"GET /das/attestation: {status}, != the provider's render")
+        for s, proof in zip(att["samples"], rebuilt):
+            if proof != prov.sampler.host_proof(entry, s["row"], s["col"], s["axis"]):
+                raise AssertionError(f"GET /das/attestation sample {s} != the host lowering")
+        if len(rebuilt) != len(samples) or not all(verify_proofs(rebuilt, root)):
+            raise AssertionError("the GET attestation's proofs do not verify")
+        log(f"[{card}] ops k={k}: GET /das/attestation of {len(samples)} samples, "
+            f"{len(body)} bytes in {ms:.3f} ms; each sample == the host lowering, all verify")
+        with environment({"CELESTIA_SERVE_VERIFY": "1"}):
+            gated = []
+            for r, c in ((3, n - 5), (n - 9, 11), (k, k)):
+                _build.reset_launches()
+                t0 = time.perf_counter()
+                status, _, body = http_get(f"{obs.url}/das/share_proof?height=1&row={r}&col={c}")
+                gated.append((time.perf_counter() - t0) * 1e3)
+                served += 1
+                out["gated GET"] = dict(_build.LAUNCHES)
+                if status != 200 or body != host_payload(r, c, "row"):
+                    raise AssertionError(f"gated GET ({r}, {c}): {status}, != the host lowering")
+                check_launches("gated GET", out["gated GET"], {"sha256_leaf": 1, "sha256": None})
+        log(f"[{card}] ops k={k}: under CELESTIA_SERVE_VERIFY=1 a GET /das/share_proof launches "
+            f"{out['gated GET']} in {[round(v, 3) for v in gated]} ms")
+        status, _, body = http_get(f"{obs.url}/device")
+        dev = json.loads(body)
+        own = dev["ownership"]
+        if status != 200 or own["measured_source"] != "device_memory_stats" or \
+                own["measured_bytes"] <= 0 or "serve_forest_cache" not in own["owners"]:
+            raise AssertionError(f"GET /device: {status} {own}")
+        status, _, body = http_get(f"{obs.url}/healthz")
+        if status != 200 or json.loads(body)["status"] != "SERVING":
+            raise AssertionError(f"GET /healthz: {status} {body[:300]}")
+        status, headers, body = http_get(f"{obs.url}/metrics")
+        kinds, scalars, _ = fleet.parse_prometheus_text(body.decode())
+        counted = sum(v for key, v in scalars.get("celestia_proofs_served_total", {}).items()
+                      if dict(key).get("plane") == "rest")
+        if status != 200 or kinds.get("celestia_proofs_served_total") != "counter" or \
+                counted < served:
+            raise AssertionError(f"GET /metrics: {status}, {counted} proofs counted on the "
+                                 f"rest plane for {served} GETs")
+        log(f"[{card}] ops: GET /device measured_source device_memory_stats, peak "
+            f"{own['measured_bytes'] / 1e9:.3f} GB, owners {own['owners']}; /healthz SERVING; "
+            f"/metrics {len(body)} bytes, {len(kinds)} families, {counted:g} proofs served")
+        try:
+            chaos.install("seed=1,proof_fail=1.0")
+            status, _, body = http_get(f"{obs.url}/das/share_proof?height=1&row=9&col={n - 3}")
+        finally:
+            chaos.uninstall()
+        if status != 500 or not json.loads(body)["error"].startswith("DeviceFault: "):
+            raise AssertionError(f"GET under proof_fail=1.0: {status} {body[:200]}")
+        log(f"[{card}] ops: under proof_fail=1.0 GET /das/share_proof answers {status} "
+            f"({json.loads(body)['error'][:100]}...)")
+    finally:
+        obs.stop()
+        exposition.unregister_das_provider(prov)
+    del prov, entry
+
+    # 2. State sync at k=APP_K.
+    keys = funded_keys(APP_BLOCK["n_keys"])
+    genesis = deterministic_genesis(keys, n_validators=1, gov_max_square_size=APP_K)
+    source = ServingNode(genesis=genesis, keys=keys, snapshot_interval=OPS_SNAPSHOT_INTERVAL)
+    src_server = serve(source, port=0, block_interval_s=None)
+    servers = [src_server]
+    try:
+        t0 = time.perf_counter()
+        for h in range(1, OPS_HEIGHTS + 1):
+            for raw in ops_chain_txs(source, keys, h):
+                source.broadcast(raw, relay=False)
+            data, results = source.produce_block()
+            big = h % 2 == 0 and h > OPS_LAST_SNAPSHOT
+            if (data.square_size == APP_K) != big or any(r.code for r in results):
+                raise AssertionError(f"source height {h}: k={data.square_size}, codes "
+                                     f"{sorted({r.code for r in results})}")
+        log(f"[{card}] ops: source chain of {OPS_HEIGHTS} heights (sends at the even ones, "
+            f"k={APP_K} at the even ones past {OPS_LAST_SNAPSHOT}) "
+            f"in {time.perf_counter() - t0:.3f} s; snapshots at "
+            f"{[m['height'] for m in source.rpc_snapshots()]}")
+        # A rebuild under a fault on every rung: 500 naming DeviceFault, and
+        # the probe shows the stepped-down ladder.
+        source.das_provider().cache.reset_for_tests()
+        try:
+            chaos.install("seed=1,dispatch_fail=1.0,dispatch_fail_all=1")
+            status, _, body = http_get(f"{src_server.url}/das/share_proof?height=2&row=0&col=0")
+            health = json.loads(http_get(f"{src_server.url}/healthz")[2])
+        finally:
+            chaos.uninstall()
+            degrade.reset_for_tests()
+        if status != 500 or not json.loads(body)["error"].startswith("DeviceFault: ") or \
+                health["status"] != "DEGRADED":
+            raise AssertionError(f"GET rebuild under dispatch_fail_all: {status} {body[:200]}, "
+                                 f"/healthz {health.get('status')} {health.get('degraded')}")
+        log(f"[{card}] ops: a GET rebuild with every rung faulted answers 500 (DeviceFault), "
+            f"then /healthz {health['status']} {health['degraded']}")
+        meta = source.rpc_snapshots()[-1]
+        snap_bytes = sum(len(c) for c in source._snapshots[meta["height"]]["chunks"])
+
+        joiner = ServingNode(genesis=genesis, keys=keys)
+        split = Split([(RemoteNode, "snapshots", "fetch"), (RemoteNode, "snapshot_chunk", "fetch"),
+                       (CommitStore, "load_height", "restore"),
+                       (consensus, "verify_commit", "verify"),
+                       (ServingNode, "_catch_up", "catch-up")])
+        per_block: dict = {}
+        apply_block = ServingNode.apply_block
+
+        def counted_apply(self, height, *args, **kwargs):
+            torch.cuda.synchronize()
+            before = dict(_build.LAUNCHES)
+            try:
+                return apply_block(self, height, *args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                per_block[height] = {name: _build.LAUNCHES[name] - before[name] for name in before}
+
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        with split.timing(), swapped(ServingNode, "apply_block", counted_apply):
+            t0 = time.perf_counter()
+            joined = joiner.state_sync_from(src_server.url)
+            torch.cuda.synchronize()
+            sync_ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(_build.LAUNCHES)
+        check_launches("state-sync catch-up", counts,
+                       {"rs_dense": None, "sha256_leaf": None, "sha256": None})
+        tall = [h for h in per_block if h % 2 == 0]
+        for h in tall:
+            check_launches(f"catch-up block {h}", per_block[h],
+                           {"rs_dense": None, "sha256_leaf": None, "sha256": None})
+        out["catch-up block"] = per_block[tall[0]]
+        if joined != meta["height"] or joiner.app.height != source.app.height or \
+                joiner.app.cms.last_app_hash != source.app.cms.last_app_hash:
+            raise AssertionError(f"joiner: joined {joined}, height {joiner.app.height}, app hash "
+                                 f"{joiner.app.cms.last_app_hash.hex()} != the source's "
+                                 f"{source.app.cms.last_app_hash.hex()}")
+        t0 = time.perf_counter()
+        replay = TestNode(genesis, keys, device="cpu")
+        replayed = replay_heights(replay, source, source.app.height, ServingNode._parse_evidence)
+        replay_s = time.perf_counter() - t0
+        if replayed[-1] != joiner.app.cms.last_app_hash:
+            raise AssertionError(f"the CPU replay's app hash {replayed[-1].hex()} != the joiner's")
+        check_ms = sync_ms - sum(split.ms.values())
+        log(f"[{card}] ops: snapshot at {meta['height']}: {snap_bytes} bytes in "
+            f"{len(meta['chunk_hashes'])} chunks; a joiner on the card synced in {sync_ms:.3f} ms "
+            f"({', '.join(f'{key} {v:.3f}' for key, v in split.ms.items())}, the metadata check "
+            f"{check_ms:.3f} ms) to height "
+            f"{joiner.app.height}, app hash {joiner.app.cms.last_app_hash.hex()} == the source's "
+            f"== a CPU TestNode's replay ({replay_s:.3f} s); catch-up launches {counts}, per "
+            f"block {per_block}")
+        joiner.produce_block()
+        if joiner.app.height != OPS_HEIGHTS + 1 or source.app.height != OPS_HEIGHTS + 1 or \
+                joiner.app.cms.last_app_hash != source.app.cms.last_app_hash:
+            raise AssertionError(f"the joiner's own height: joiner {joiner.app.height}, source "
+                                 f"{source.app.height}, app hashes differ")
+        def forge_minter(snap):
+            snap["minter"]["annual_provisions"] = str(2 * int(snap["minter"]["annual_provisions"]))
+
+        def tamper_chunk(snap):
+            snap["chunks"][0] = b'{"deadbeef":"ff"}'
+
+        for what, tamper, error, message in (
+                ("a tampered chunk", tamper_chunk, ValueError, "chunk 0 hash mismatch"),
+                ("a forged minter", forge_minter, consensus.ConsensusError, "does not attest height")):
+            with source.lock:
+                saved = copy.deepcopy(source._snapshots)
+                tamper(source._snapshots[meta["height"]])
+            try:
+                ServingNode(genesis=genesis, keys=keys).state_sync_from(src_server.url)
+            except error as e:
+                if message not in str(e):
+                    raise
+            else:
+                raise AssertionError(f"{what} was restored")
+            finally:
+                with source.lock:
+                    source._snapshots = saved
+        log(f"[{card}] ops: the joiner produced height {joiner.app.height}, applied by the source "
+            f"to the same app hash; a tampered chunk refused (chunk 0 hash mismatch), a forged "
+            f"minter refused (the Commit two heights past the snapshot)")
+
+        # 3. The fleet over the source, the joiner and a stopped URL.
+        servers.append(serve(joiner, port=0, block_interval_s=None))
+        dead = f"http://127.0.0.1:{devnet.free_ports(1)[0]}"
+        urls = [src_server.url, servers[1].url, dead]
+        fleet.configure(urls, interval_s=3600)
+        try:
+            t0 = time.perf_counter()
+            status, _, body = http_get(f"{servers[1].url}/fleet")
+            fleet_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            fleet._reset_for_tests()
+        merged = json.loads(body)
+        hosts = merged["hosts"]
+        if status != 200 or merged["fleet"]["hosts_reachable"] != 2 or \
+                not hosts[dead]["peer_unreachable"] or \
+                any(hosts[u].get("device", {}).get("measured_bytes", 0) <= 0 for u in urls[:2]):
+            raise AssertionError(f"GET /fleet: {status} {body[:400]}")
+        for u in urls[:2]:
+            src = json.loads(http_get(f"{u}/device")[2])["ownership"]["measured_source"]
+            if src != "device_memory_stats":
+                raise AssertionError(f"{u}/device measured_source {src}")
+        log(f"[{card}] ops: GET /fleet over 3 URLs in {fleet_ms:.3f} ms: 2 reachable, each "
+            f"device block from device_memory_stats ({hosts[urls[0]]['device']}); the stopped "
+            f"one marked ({hosts[dead]['error'][:80]})")
+    finally:
+        for s in servers:
+            s.stop()
+        degrade.reset_for_tests()
+
+    # 4. The devnet: validator processes on the card.
+    t0 = time.perf_counter()
+    net = devnet.spawn_devnet(OPS_DEVNET, block_interval_ms=300, wait_s=300)
+    up_s = time.perf_counter() - t0
+    try:
+        deadline = time.monotonic() + 120
+        while True:
+            net.check()
+            heights = [net.client(i).status()["height"] for i in range(OPS_DEVNET)]
+            if min(heights) >= OPS_DEVNET_HEIGHT:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"devnet heights {heights}")
+            time.sleep(0.2)
+        run_s = time.perf_counter() - t0 - up_s
+        # One send, so that a devnet height holds a square of its own: each
+        # child's launches across that height, from the reports in its log.
+        dkeys = funded_keys(4)
+        raw = block_txs(dkeys, net.client(0).chain_id, seed=OPS_DEVNET, sends=1, pfbs=0)[0]
+        if net.client(0).broadcast(raw).code != 0:
+            raise AssertionError("the devnet refused the send")
+        landed = net.client(0).wait_tx(tx_hash(raw), timeout_s=60)
+        if landed is None or landed[1] != 0:
+            raise AssertionError(f"the devnet's send: {landed}")
+        h_tx = landed[0]
+        deadline = time.monotonic() + 60
+        while True:
+            net.check()
+            reports = [net.launches(i) for i in range(OPS_DEVNET)]
+            if all(r and r[-1][0] >= h_tx for r in reports):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"devnet launch reports short of height {h_tx}")
+            time.sleep(0.2)
+        spans = [net.launches_across(i, h_tx) for i in range(OPS_DEVNET)]
+        for i, (lo, hi, counts) in enumerate(spans):
+            check_launches(f"devnet validator {i}, heights {lo}..{hi}", counts,
+                           {"rs_dense": None, "sha256_leaf": None, "sha256": None})
+        out["devnet height"] = [counts for _, _, counts in spans]
+        top = min(net.client(i).status()["height"] for i in range(OPS_DEVNET))
+        clients = [net.client(i) for i in range(OPS_DEVNET)]
+        blocks = [[c.block(h)["data_hash"] for h in range(1, top + 1)] for c in clients]
+        attested = [[c.commit(h + 1).prev_app_hash.hex() for h in range(1, top)]
+                    for c in clients]
+        if any(b != blocks[0] for b in blocks) or any(a != attested[0] for a in attested):
+            raise AssertionError(f"devnet blocks or app hashes differ: {attested}")
+        for u in net.urls:
+            src = json.loads(http_get(f"{u}/device")[2])["ownership"]["measured_source"]
+            if src != "device_memory_stats":
+                raise AssertionError(f"devnet {u}/device measured_source {src}")
+        fleet.configure(net.urls, interval_s=3600)
+        try:
+            merged = json.loads(exposition.handle_observability_get("/fleet")[2])
+        finally:
+            fleet._reset_for_tests()
+        if merged["fleet"]["hosts_reachable"] != OPS_DEVNET or any(
+                h.get("device", {}).get("measured_bytes", 0) <= 0 for h in merged["hosts"].values()):
+            raise AssertionError(f"/fleet over the devnet: {merged['fleet']}")
+        net.check()
+    except Exception:
+        for i in range(OPS_DEVNET):
+            log(f"devnet validator {i} log:\n{net.log(i)[-3000:]}")
+        raise
+    finally:
+        net.stop()
+    log(f"[{card}] ops: devnet of {OPS_DEVNET} validator processes on the card up in "
+        f"{up_s:.3f} s, height {OPS_DEVNET_HEIGHT} after {run_s:.3f} s more; a send landed at "
+        f"height {h_tx}; blocks and attested app hashes equal across the three up to {top} "
+        f"({attested[0][-1][:16]}...); each child's /device from device_memory_stats; /fleet 3 "
+        f"reachable hosts; each child's own launches across the send's height "
+        f"{[(lo, hi, counts) for lo, hi, counts in spans]}")
     return out
 
 
@@ -4718,6 +5182,8 @@ def main() -> int:
     phase_done("das")
     serve_counts = phase_serve(torch, eds, card)
     phase_done("serve")
+    ops_counts = phase_ops(torch, eds, card)
+    phase_done("ops")
     phase_uploads(torch, eds, card)
     phase_done("uploads")
     del eds
@@ -4749,7 +5215,8 @@ def main() -> int:
         f"node height {node_counts['height']}, of them its recheck's {node_counts['recheck']}; "
         f"per gossip height and validator {consensus['validators']}; per proof "
         f"query {query_counts}; in the bridge worker over its run {bridge_counts}; per DAS "
-        f"payload and heal {serve_counts}")
+        f"payload and heal {serve_counts}; per gated GET, state-sync catch-up block and, per "
+        f"child, devnet height {ops_counts}")
 
     # Each kernel's launches on the k=512 path that runs it: the column
     # phase's kernel names the path, the hashing kernels run on every path.

@@ -8,6 +8,7 @@ shapes.  On a card: `python -m pytest tests/test_torch_cuda.py -m cuda`.
 from __future__ import annotations
 
 import hashlib
+import json
 import os
 
 import numpy as np
@@ -966,3 +967,87 @@ def test_heal_on_card_equals_cpu_and_a_fault_is_no_verdict(cuda):
     finally:
         chaos.uninstall()
         degrade.reset_for_tests()
+
+
+def test_get_surface_on_card_equals_cpu(cuda):
+    """The exposition's /das routes over a provider on the card give the
+    CPU provider's bytes; /device then reads the card's allocator; a
+    persistent proof_fail answers 500 naming DeviceFault."""
+    from celestia_app_tpu_torch import chaos
+    from celestia_app_tpu_torch.serve import ForestCache
+    from celestia_app_tpu_torch.serve.api import DasProvider
+    from celestia_app_tpu_torch.trace import exposition
+
+    k = 16
+    paths = ["/das/share_proof?height=1&row=0&col=0", "/das/share_proof?height=1&row=5&col=30&axis=col",
+             "/das/attestation?height=1&samples=0:0,3:4:col,20:21", "/das/coverage?height=1"]
+    bodies = []
+    for device in (cuda, "cpu"):
+        p = DasProvider(cache=ForestCache(heights=1, spill=1, device=device))
+        p.cache.put(1, _serve_square(k, device))
+        exposition.register_das_provider(p)
+        try:
+            ns = p.entry(1).eds.ods_namespaces()[40].tobytes().hex()
+            bodies.append([exposition.handle_observability_get(path)
+                           for path in paths + [f"/das/shares?height=1&namespace={ns}"]])
+            if device is cuda:
+                own = json.loads(exposition.handle_observability_get("/device")[2])["ownership"]
+                assert own["measured_source"] == "device_memory_stats" and own["measured_bytes"] > 0
+                chaos.install("seed=1,proof_fail=1.0")
+                try:
+                    status, _, body = exposition.handle_observability_get(paths[0])
+                finally:
+                    chaos.uninstall()
+                assert status == 500 and json.loads(body)["error"].startswith("DeviceFault: ")
+        finally:
+            exposition.unregister_das_provider(p)
+    assert bodies[0][:3] == bodies[1][:3] and bodies[0][4] == bodies[1][4]
+    assert all(b[0] == 200 for b in bodies[0])
+
+
+def test_state_sync_joiner_on_card_equals_cpu_chain(cuda):
+    """A chain built on the CPU, joined by a node on the card: its catch-up
+    runs the extend and the forest on the card and lands on the CPU chain's
+    app hash."""
+    from celestia_app_tpu_torch.rpc.server import ServingNode, serve
+    from celestia_app_tpu_torch.testutil import deterministic_genesis, funded_keys
+    from celestia_app_tpu_torch.testutil.blocks import block_txs, next_sequences
+
+    keys = funded_keys(4)
+    genesis = deterministic_genesis(keys, n_validators=1)
+    source = ServingNode(genesis=genesis, keys=keys, snapshot_interval=4, device="cpu")
+    server = serve(source, port=0, block_interval_s=None)
+    try:
+        for h in range(1, 7):
+            for raw in block_txs(keys, source.app.chain_id, seed=h, sends=1, pfbs=2,
+                                 blob_shares=(1, 3), sequences=next_sequences(source.app, keys)):
+                source.broadcast(raw, relay=False)
+            source.produce_block()
+        joiner = ServingNode(genesis=genesis, keys=keys, device=cuda)
+        _build.reset_launches()
+        assert joiner.state_sync_from(server.url) == 4
+        assert _build.LAUNCHES["rs_dense"] > 0 and _build.LAUNCHES["sha256_leaf"] > 0
+        assert joiner.app.height == 6
+        assert joiner.app.cms.last_app_hash == source.app.cms.last_app_hash
+    finally:
+        server.stop()
+
+
+def test_devnet_on_card(cuda, tmp_path):
+    """Two validator processes on the card reach height 2 at equal app
+    hashes."""
+    import time
+
+    from celestia_app_tpu_torch.rpc.devnet import spawn_devnet
+
+    net = spawn_devnet(2, device="cuda", log_dir=str(tmp_path), wait_s=300)
+    try:
+        deadline = time.monotonic() + 120
+        while min(net.client(i).status()["height"] for i in range(2)) < 3:
+            net.check()
+            assert time.monotonic() < deadline
+            time.sleep(0.2)
+        hashes = [[net.client(i).commit(h + 1).prev_app_hash for h in (1, 2)] for i in range(2)]
+        assert hashes[0] == hashes[1]
+    finally:
+        net.stop()

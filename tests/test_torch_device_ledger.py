@@ -299,9 +299,11 @@ def test_bundle_sections_equal_jax():
     assert port["device"]["ownership"]["measured_source"] == "rss_high_water"
     assert port["coverage"] == ref["coverage"]
     assert set(port["timeline"]) == set(ref["timeline"])
-    # What the exposition will bring: /healthz.
-    assert set(ref) - set(port) == {"healthz"}
-    assert set(port) <= set(ref)
+    # The probe's view (trace/exposition.health_payload), the bundle's last
+    # section to be ported.
+    assert set(port) == set(ref)
+    assert port["healthz"]["status"] == ref["healthz"]["status"] == "DEGRADED"
+    assert port["healthz"]["degraded"] == ref["healthz"]["degraded"] == {"device": "staged"}
 
 
 def test_a_breaker_trip_writes_its_bundle():

@@ -2,7 +2,7 @@
 CPU (helpers from tests/test_torch_gossip.py): RemoteNode + TxClient
 against a solo port ServingNode give the JAX node's answers; no quiet CPU
 fallback; a device fault in a validator's proposal check is never a vote;
-state sync is left out and says so.
+and a nonzero snapshot_interval takes snapshots.
 """
 
 from __future__ import annotations
@@ -118,9 +118,15 @@ def test_no_card_no_node():
 
 
 def test_state_sync_left_out():
+    """State sync is no longer left out: a nonzero snapshot_interval takes a
+    snapshot every that many heights (tests/test_torch_state_sync.py holds
+    the snapshots and the sync to the JAX package)."""
     keys = funded_keys(N_KEYS)
-    with pytest.raises(NotImplementedError, match="snapshot"):
-        ServingNode(deterministic_genesis(keys), keys, snapshot_interval=2, device="cpu")
+    node = ServingNode(deterministic_genesis(keys, n_validators=1), keys, snapshot_interval=2,
+                       device="cpu")
+    for _ in range(3):
+        node.produce_block()
+    assert [m["height"] for m in node.rpc_snapshots()] == [2]
 
 
 def test_retention_device_fault_comes_out_after_the_commit():
