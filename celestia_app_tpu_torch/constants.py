@@ -48,6 +48,12 @@ V1_VERSION = 1
 V2_VERSION = 2
 LATEST_VERSION = V2_VERSION
 
+
+def square_size_upper_bound(_app_version: int = LATEST_VERSION) -> int:
+    """The versioned hard cap on the ODS width (the same at v1 and v2)."""
+    return SQUARE_SIZE_UPPER_BOUND
+
+
 # Initial, governance-modifiable params (pkg/appconsts/initial_consts.go).
 DEFAULT_GOV_MAX_SQUARE_SIZE = 64
 DEFAULT_GAS_PER_BLOB_BYTE = 8

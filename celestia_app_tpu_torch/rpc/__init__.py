@@ -14,9 +14,12 @@ JSON-RPC over HTTP. This package is that wire for the TPU framework:
   * `rpc.devnet` — a multi-process devnet: N validator processes with a
     rotating proposer exchanging proposals over the wire.
 
-The port's copy of celestia_app_tpu/rpc/: `server` (with its GET face and
-state sync), `client`, `gossip`, `transport`, `codec` and `devnet`.  The gRPC
-and REST planes (`grpc_plane`, `api_gateway`) come next (ROADMAP, queue 1).
+The port's copy of celestia_app_tpu/rpc/, whole: `server` (with its GET
+face and state sync), `client`, `gossip`, `transport`, `codec`, `devnet`, the
+gRPC plane `grpc_plane` (grpcio imported only where a server or a channel is
+made) and the REST gateway `api_gateway`.  The three serving planes mount
+the same observability handler (trace/exposition.py), so /metrics, /healthz
+and /das/* serve the same bytes on each.
 """
 
 # Lazy exports: ServingNode pulls in the full app stack; the client and

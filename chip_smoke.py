@@ -59,10 +59,19 @@ Phases, in order; any failure raises and the script exits non-zero:
              app hash == the source's == a CPU replay), the fleet over the
              two nodes and a stopped URL, and a 3-process devnet on the card
              (the phase's docstring says what it checks);
- 10. uploads the one-shot calls' staged (pinned) host-to-device copy against a
+ 10. planes  the host planes: a k=128 ServingNode on the card with its
+             JSON-RPC, REST gateway and gRPC plane (a TxClient over GrpcNode
+             where grpc imports, the handlers' request bytes where it does
+             not; the line says which), GetShareProof == the gateway's and
+             the JSON-RPC plane's bytes == the host lowering, the Blobstream
+             relayer's proofs through a contract, the throughput criterion
+             at k=128, malicious proposals refused, and the daemon's
+             processes on the card (the phase's docstring says what it
+             checks);
+ 11. uploads the one-shot calls' staged (pinned) host-to-device copy against a
              pageable one, in turns: the upload alone and extend_shares at
              k=128 and 512, and the k=512 repair;
- 11. stream  stream_blocks at k=128 (leopard, 32 squares, batch 1 and 4) and
+ 12. stream  stream_blocks at k=128 (leopard, 32 squares, batch 1 and 4) and
              k=512 (vandermonde, 8 squares, batch 1), depth 2: every data root
              equal to a one-shot compute, squares per second beside the
              one-shot time, launches per dispatch (counted per batch from the
@@ -72,7 +81,7 @@ Phases, in order; any failure raises and the script exits non-zero:
              built on the default stream while the pipeline runs, equal to
              the one-shot forests; a speculation hit and a discard; the
              ring's swap of a pinned slot;
- 12. faults  the device fault plane (chaos/degrade.py): the degradation
+ 13. faults  the device fault plane (chaos/degrade.py): the degradation
              ladder walked rung by rung at k=512 under $CELESTIA_CHAOS specs
              (fused_epi -> fused -> staged -> host, each rung's journal row
              and launches, on the dense and the XOR core), real launch
@@ -81,8 +90,8 @@ Phases, in order; any failure raises and the script exits non-zero:
              sentinel's drills, warm-up's cold and warm first calls, the
              device ledger and the bridge backend's fall-back (the phase's
              docstring says what it checks);
- 13. commitments, 14. app, 15. chain, 16. node, 17. consensus, 18. querier,
- 19. bridge: the consensus-side entry points, the ABCI App's CheckTx /
+ 14. commitments, 15. app, 16. chain, 17. node, 18. consensus, 19. querier,
+ 20. bridge: the consensus-side entry points, the ABCI App's CheckTx /
              PrepareProposal / ProcessProposal among them, two k=128
              heights of Prepare -> Process -> FinalizeBlock -> Commit, the
              in-process node (TestNode, Network, txsim) broadcasting two
@@ -92,7 +101,7 @@ Phases, in order; any failure raises and the script exits non-zero:
              one with a dead proposer and one with an injected launch fault
              that outlasts the ladder (each phase's docstring says what it
              checks);
- 20. giant   k=1024 and k=2048 (GF(2^16)): the materializing fused, epi and
+ 21. giant   k=1024 and k=2048 (GF(2^16)): the materializing fused, epi and
              XOR lowerings and the panel-streamed one ($CELESTIA_PIPE_PANEL:
              64-row panels, 48-row panels at k=1024, the FFT column leg):
              one data root and one EDS per k, the roots-only twins, 64
@@ -100,7 +109,7 @@ Phases, in order; any failure raises and the script exits non-zero:
              lowering as counted from the code, wall and device time and
              peak memory per lowering, a k=1024 BlockPipeline under panel
              mode (batch 1, 16 panels per square);
- 21. mesh    the multi-device plane on 4 logical shards of cuda:0, each with
+ 22. mesh    the multi-device plane on 4 logical shards of cuda:0, each with
              its own stream (and again over the real cards where there are
              two or more): the k=512 sharded extend over 2 and 4 shards and
              its DAH-only twin == single-card compute, sharded repair with
@@ -1843,6 +1852,415 @@ def phase_ops(torch, eds, card: str) -> dict:
         f"({attested[0][-1][:16]}...); each child's /device from device_memory_stats; /fleet 3 "
         f"reachable hosts; each child's own launches across the send's height "
         f"{[(lo, hi, counts) for lo, hi, counts in spans]}")
+    return out
+
+
+PLANES_WINDOW = 4
+PLANES_HEIGHTS = 5
+PLANES_THROUGHPUT = {"blocks": 3, "blob_size": 150_000, "target_fill": 0.9}
+
+
+def grpc_status() -> tuple[bool, str]:
+    """(whether grpcio imports here, what to say of it)."""
+    try:
+        import grpc
+    except ImportError as e:
+        return False, f"grpc does not import ({e})"
+    return True, f"grpc imports (grpcio {grpc.__version__})"
+
+
+class TamperedRemote:
+    """A remote whose share proofs carry one flipped share byte."""
+
+    def __init__(self, remote):
+        self._remote = remote
+
+    def __getattr__(self, name):
+        return getattr(self._remote, name)
+
+    def share_inclusion_proof(self, height, start, end):
+        import dataclasses
+
+        proof, root = self._remote.share_inclusion_proof(height, start, end)
+        share = bytearray(proof.data[0])
+        share[200] ^= 1
+        return dataclasses.replace(proof, data=(bytes(share), *proof.data[1:])), root
+
+
+def appd_run(home: str, *argv, device: str | None = None) -> tuple[str, float]:
+    """stdout and seconds of one `python -m celestia_app_tpu_torch.cmd.appd`
+    process on `home` (on the card unless `device` says otherwise); a
+    non-zero exit fails with its stderr."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    cmd = [sys.executable, "-m", "celestia_app_tpu_torch.cmd.appd", "--home", home]
+    cmd += ["--device", device] if device else []
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd + list(argv), capture_output=True, text=True, cwd=root, env=env,
+                         timeout=300)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"appd {' '.join(argv)}: exit {out.returncode}\n{out.stderr[-3000:]}")
+    return out.stdout, seconds
+
+
+def appd_sequence(result: dict) -> None:
+    """init, start --blocks 2 --no-sleep --warmup minimal, status, rollback
+    and status of the daemon on a fresh home, one process each on the card;
+    fills `result` with each one's stdout and seconds, or the error."""
+    import tempfile
+
+    try:
+        seconds = {}
+        with tempfile.TemporaryDirectory() as home:
+            for name, argv in (("init", ("init", "planes-chain")),
+                               ("start", ("start", "--blocks", "2", "--no-sleep", "--warmup",
+                                          "minimal")),
+                               ("status", ("status",)), ("rollback", ("rollback",)),
+                               ("status again", ("status",))):
+                result[name], seconds[name] = appd_run(home, *argv)
+        result["seconds"] = seconds
+    except Exception as e:  # noqa: BLE001 — reported by the phase
+        result["error"] = f"{type(e).__name__}: {e}"
+
+
+def phase_planes(torch, card: str) -> dict:
+    """The host planes of the port on the card (rpc/grpc_plane.py,
+    rpc/api_gateway.py, cmd/appd.py, testutil/{benchmark,malicious}.py,
+    modules/blobstream/relayer.py):
+      1. a ServingNode on the card as a served devnet runs it: APP_BLOCK's
+         256-key genesis with 3 validators, app version 1 and the Blobstream
+         window at PLANES_WINDOW blocks, its JSON-RPC, the REST gateway and
+         the gRPC plane mounted.  Whether grpc imports here is printed; with
+         it, APP_BLOCK's txs go in through GrpcNode's BroadcastTx, every one
+         is confirmed through WaitTx, and a user.TxClient over GrpcNode
+         submits a send that WaitTx confirms; without it the same request
+         bytes go through `_handlers(node)` and the line says so.  The
+         block is k=APP_K;
+      2. the DAS bytes across the planes at that height: GetShareProof ==
+         GET /das/share_proof on the gateway == the JSON-RPC get_share_proof
+         payload == the host lowering, on both axes, each verified; one
+         gated call under $CELESTIA_SERVE_VERIFY=1 and its launches;
+      3. the relayer on the same node, run to PLANES_HEIGHTS: orchestrators
+         sign, relay_pending submits the window to a BlobstreamContract,
+         verify_blob / verify_tx / verify_shares prove a PFB of the card's
+         k=APP_K block (its launches counted), a tampered share proof, a
+         wrong data root and an unrelayed nonce are refused;
+      4. run_throughput on a gov-APP_K TestNode on the card,
+         PLANES_THROUGHPUT (the JAX suite's k=128 setting): sustained(0.9),
+         each block's fill, seconds and launches, each data root ==
+         extend_block(txs, device="cpu");
+      5. each MaliciousApp behaviour's proposal of the golden block is
+         rejected by an honest App on the card, which accepts the honest
+         one;
+      6. the daemon in subprocesses on the card, run beside 1-5: init,
+         start --blocks 2 --no-sleep --warmup minimal (its launches lines
+         show the card's kernels ran), status, rollback, status.
+    Returns the launches per throughput block, per gated GetShareProof and
+    per relayer proof."""
+    import threading
+
+    from celestia_app_tpu_torch.app import extend_block
+    from celestia_app_tpu_torch.crypto.keys import PrivateKey
+    from celestia_app_tpu_torch.da import DataAvailabilityHeader
+    from celestia_app_tpu_torch.encoding.proto import encode_bytes_field, encode_varint_field
+    from celestia_app_tpu_torch.kernels import _build
+    from celestia_app_tpu_torch.modules.blobstream import relayer
+    from celestia_app_tpu_torch.modules.blobstream.keeper import BridgeValidator
+    from celestia_app_tpu_torch.rpc import grpc_plane
+    from celestia_app_tpu_torch.rpc.api_gateway import serve_api
+    from celestia_app_tpu_torch.rpc.client import RemoteNode
+    from celestia_app_tpu_torch.rpc.codec import share_proof_from_json, to_jsonable
+    from celestia_app_tpu_torch.rpc.server import ServingNode, serve
+    from celestia_app_tpu_torch.serve.api import render
+    from celestia_app_tpu_torch.testutil import TestNode, benchmark, deterministic_genesis
+    from celestia_app_tpu_torch.testutil import funded_keys, malicious
+    from celestia_app_tpu_torch.testutil.blocks import block_txs
+    from celestia_app_tpu_torch.trace import traced
+    from celestia_app_tpu_torch.tx import tx_hash
+    from celestia_app_tpu_torch.tx.envelopes import unmarshal_blob_tx
+    from celestia_app_tpu_torch.tx.messages import Coin, MsgSend
+    from celestia_app_tpu_torch.user import TxClient
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    # 6. The daemon's processes run beside the in-process parts (each
+    # spends most of its ~10 s importing torch and reaching the card); their
+    # kernel counters are their own.
+    appd_out: dict = {}
+    daemon = threading.Thread(target=appd_sequence, args=(appd_out,), daemon=True)
+    daemon.start()
+    have_grpc, grpc_line = grpc_status()
+    log(f"[{card}] planes: {grpc_line}; " + (
+        "the gRPC checks go over a channel (serve_grpc + GrpcNode)" if have_grpc else
+        "the gRPC checks call the same request bytes through _handlers(node), no transport"))
+
+    # 1. A served node on the card with its three planes.
+    keys = funded_keys(APP_BLOCK["n_keys"])
+    genesis = deterministic_genesis(keys, n_validators=3, app_version=1,
+                                    data_commitment_window=PLANES_WINDOW,
+                                    gov_max_square_size=APP_K)
+    node = ServingNode(genesis=genesis, keys=keys, validator_index=0, n_validators=1)
+    node.peer_urls = []
+    handlers = grpc_plane._handlers(node)
+    rpc = serve(node, port=0, block_interval_s=None)
+    gw = serve_api(node)
+    plane = grpc_plane.serve_grpc(node) if have_grpc else None
+    client = grpc_plane.GrpcNode(plane.target) if plane else None
+    if plane is not None:
+        import grpc
+
+        channel = grpc.insecure_channel(plane.target)
+
+    def grpc_call(svc: str, method: str, req: bytes) -> bytes:
+        """One unary call of request bytes: over a channel where grpc
+        imports, else through the handler."""
+        if plane is None:
+            return handlers[svc][method](req)
+        return channel.unary_unary(f"/{svc}/{method}")(req)
+
+    try:
+        txs = block_txs(keys, node.chain_id, seed=APP_BLOCK["seed"], sends=APP_BLOCK["sends"],
+                        pfbs=APP_BLOCK["pfbs"], blob_shares=APP_BLOCK["blob_shares"])
+        t0 = time.perf_counter()
+        for raw in txs:
+            resp = grpc_call("cosmos.tx.v1beta1.Service", "BroadcastTx", encode_bytes_field(1, raw))
+            code = grpc_plane._parse_tx_response(grpc_plane._field_bytes(resp, 1))["code"]
+            if code != 0:
+                raise AssertionError(f"BroadcastTx: code {code}")
+        broadcast_ms = (time.perf_counter() - t0) * 1e3 / len(txs)
+        big = []
+        while len(node.mempool):
+            data, results = node.produce_block()
+            big.append((node.app.height, data.square_size, len(data.txs)))
+            if any(r.code for r in results) or len(big) > 3:
+                raise AssertionError(f"planes node blocks {big}")
+        h_big, k = big[0][0], big[0][1]
+        if k != APP_K:
+            raise AssertionError(f"planes node: the first block is k={k}, not {APP_K}")
+        t0 = time.perf_counter()
+        for raw in txs:
+            req = encode_bytes_field(1, tx_hash(raw).hex().upper().encode())
+            resp = grpc_call("celestia.tpu.subscription.v1.Subscription", "WaitTx",
+                             req + encode_varint_field(2, 5_000))
+            got = grpc_plane._parse_tx_response(grpc_plane._field_bytes(resp, 2))
+            if got["code"] != 0 or got["height"] not in {h for h, _, _ in big}:
+                raise AssertionError(f"WaitTx {tx_hash(raw).hex()}: {got}")
+        wait_ms = (time.perf_counter() - t0) * 1e3 / len(txs)
+        if plane is not None:
+            def produce_when_pending():
+                # The proposer's part: commit the block once the send is in.
+                deadline = time.monotonic() + 120
+                while not len(node.mempool) and time.monotonic() < deadline:
+                    time.sleep(0.01)
+                node.produce_block()
+
+            producer = threading.Thread(target=produce_when_pending, daemon=True)
+            producer.start()
+            t0 = time.perf_counter()
+            sender = TxClient(client, keys[:1])
+            to = keys[1].public_key().address()
+            resp = sender.submit_tx([MsgSend(sender.default_address, to, (Coin("utia", 321),))])
+            txclient_ms = (time.perf_counter() - t0) * 1e3
+            producer.join(timeout=120)
+            if resp.code != 0 or resp.height != node.app.height:
+                raise AssertionError(f"TxClient over GrpcNode: {resp}")
+            transport = (f"a user.TxClient over GrpcNode submitted a send, confirmed by WaitTx at "
+                         f"height {resp.height} in {txclient_ms:.3f} ms")
+        else:
+            transport = ("no TxClient over GrpcNode (no grpc here): BroadcastTx and WaitTx ran "
+                         "as the handlers' request bytes")
+        log(f"[{card}] planes: {len(txs)} txs through BroadcastTx ({broadcast_ms:.3f} ms per tx), "
+            f"blocks {big} (height, k, txs), every tx confirmed through WaitTx "
+            f"({wait_ms:.3f} ms per call); {transport}")
+
+        # 2. The DAS bytes across the planes at the k=APP_K height.
+        prov = node.das_provider()
+        entry = prov.entry(h_big)
+        root = entry.data_root
+        n = 2 * k
+        remote = RemoteNode(rpc.url)
+
+        def host_payload(row, col, axis):
+            return render({"height": h_big, "row": row, "col": col, "axis": axis,
+                           "square_size": k,
+                           "proof": to_jsonable(prov.sampler.host_proof(entry, row, col, axis)),
+                           "data_root": root.hex()})
+
+        def get_share_proof(row, col, axis):
+            req = (encode_varint_field(1, h_big) + encode_varint_field(2, row)
+                   + encode_varint_field(3, col) + encode_bytes_field(4, axis.encode()))
+            return grpc_plane._field_bytes(
+                grpc_call("celestia.tpu.das.v1.Das", "GetShareProof", req), 1)
+
+        ms = []
+        coords = [(0, 0, "row"), (n - 1, 3, "col"), (k + 1, k - 3, "row"),
+                  (k // 2 + 1, n - 2, "col"), (k - 1, k, "row"), (n - 7, n - 5, "col")]
+        for r, c, axis in coords:
+            t0 = time.perf_counter()
+            body = get_share_proof(r, c, axis)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            status, _, rest = http_get(f"{gw.url}/das/share_proof?height={h_big}&row={r}&col={c}"
+                                       f"&axis={axis}")
+            json_rpc = render(remote.call("get_share_proof", height=h_big, row=r, col=c,
+                                          axis=axis))
+            if status != 200 or not body == rest == json_rpc == host_payload(r, c, axis):
+                raise AssertionError(f"GetShareProof ({r}, {c}) {axis}: the planes' bytes differ")
+            if not share_proof_from_json(json.loads(body)["proof"]).verify(root):
+                raise AssertionError(f"GetShareProof ({r}, {c}) {axis} does not verify")
+        with environment({"CELESTIA_SERVE_VERIFY": "1"}):
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            body = get_share_proof(n - 3, 5, "row")
+            torch.cuda.synchronize()
+            gated_ms = (time.perf_counter() - t0) * 1e3
+            out["gated GetShareProof"] = dict(_build.LAUNCHES)
+        check_launches("gated GetShareProof", out["gated GetShareProof"],
+                       {"sha256_leaf": 1, "sha256": None})
+        if body != host_payload(n - 3, 5, "row"):
+            raise AssertionError("the gated GetShareProof != the host lowering")
+        log(f"[{card}] planes k={k}: GetShareProof {'over gRPC' if plane else 'by handler'} "
+            f"median {float(np.median(ms)):.3f} ms ({[round(v, 3) for v in ms]}); at "
+            f"{len(coords)} coordinates on both axes its bytes == GET /das/share_proof on the "
+            f"gateway == the JSON-RPC get_share_proof payload == the host lowering, all verify; "
+            f"under CELESTIA_SERVE_VERIFY=1 {gated_ms:.3f} ms, launches "
+            f"{out['gated GetShareProof']}")
+
+        # 3. The relayer on the same node.
+        while node.app.height < PLANES_HEIGHTS:
+            node.produce_block()
+        seeds = [PrivateKey.from_seed(f"validator-{i}".encode()) for i in range(3)]
+        vs = remote.latest_valset_before(remote.blobstream_nonces()["latest"])
+        contract = relayer.BlobstreamContract(
+            vs["nonce"], tuple(BridgeValidator(m["address"], m["power"]) for m in vs["members"]),
+            {s.public_key().address(): s.public_key() for s in seeds})
+        orchs = [relayer.Orchestrator(s.public_key().address(), s) for s in seeds]
+        t0 = time.perf_counter()
+        relayed = relayer.relay_pending(remote, contract, orchs)
+        relay_ms = (time.perf_counter() - t0) * 1e3
+        pfb = next(raw for raw in txs if unmarshal_blob_tx(raw) is not None)
+        send = next(raw for raw in txs if unmarshal_blob_tx(raw) is None)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        proved = relayer.verify_blob(remote, contract, tx_hash(pfb), 0)
+        torch.cuda.synchronize()
+        proof_ms = (time.perf_counter() - t0) * 1e3
+        out["relayer proof"] = dict(_build.LAUNCHES)
+        check_launches("relayer proof", out["relayer proof"],
+                       {"rs_dense": None, "sha256_leaf": None, "sha256": None})
+        dc = remote.data_commitment_range(h_big)
+        index, total, path = remote.data_root_inclusion_proof(h_big, dc["begin_block"],
+                                                              dc["end_block"])
+        verdicts = {
+            "verify_blob": proved,
+            "verify_tx (PFB)": relayer.verify_tx(remote, contract, tx_hash(pfb)),
+            "verify_tx (send)": relayer.verify_tx(remote, contract, tx_hash(send)),
+            "verify_shares": relayer.verify_shares(remote, contract, h_big, 0, 1),
+            "tampered share proof": relayer.verify_blob(TamperedRemote(remote), contract,
+                                                        tx_hash(pfb), 0),
+            "wrong data root": contract.verify_attestation(
+                dc["nonce"], h_big, hashlib.sha256(b"not the data root").digest(), index,
+                total, path),
+            "unrelayed nonce": contract.verify_attestation(dc["nonce"] + 99, h_big, root, index,
+                                                           total, path),
+        }
+        want = {key: not key.startswith(("tampered", "wrong", "unrelayed")) for key in verdicts}
+        if relayed < 1 or verdicts != want:
+            raise AssertionError(f"relayer: relayed {relayed}, verdicts {verdicts}")
+        log(f"[{card}] planes relayer: {relayed} data commitment(s) relayed in {relay_ms:.3f} ms "
+            f"(valset nonce {contract.valset_nonce}, roots at nonces {sorted(contract.tuple_roots)}); "
+            f"verify_blob of a PFB in the k={k} block {proof_ms:.3f} ms, launches "
+            f"{out['relayer proof']}; verdicts {verdicts}")
+    finally:
+        if plane is not None:
+            client.close()
+            channel.close()
+            plane.stop()
+        gw.stop()
+        rpc.stop()
+
+    # 4. The throughput criterion at k=APP_K.
+    tkeys = funded_keys(2)
+    tnode = TestNode(deterministic_genesis(tkeys, gov_max_square_size=APP_K), tkeys)
+    proposals, launches = [], []
+    prepare, commit = tnode.app.prepare_proposal, tnode.app.commit
+
+    def counted_prepare(block_txs_):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        data = prepare(block_txs_)
+        proposals.append((data.txs, data.square_size, data.hash))
+        return data
+
+    def counted_commit():
+        app_hash = commit()
+        torch.cuda.synchronize()
+        launches.append(dict(_build.LAUNCHES))
+        return app_hash
+
+    tnode.app.prepare_proposal, tnode.app.commit = counted_prepare, counted_commit
+    rows_before = len(traced().table("throughput"))
+    result = benchmark.run_throughput(tnode, **PLANES_THROUGHPUT)
+    rows = traced().table("throughput")[rows_before:]
+    if not result.sustained(0.9) or len(proposals) != PLANES_THROUGHPUT["blocks"]:
+        raise AssertionError(f"throughput at k={APP_K}: fills {result.fills}")
+    for i, counts in enumerate(launches):
+        check_launches(f"throughput block {i + 1}", counts,
+                       {"rs_dense": None, "sha256_leaf": None, "sha256": None})
+    out["throughput block"] = launches[0]
+    t0 = time.perf_counter()
+    for txs_, size, data_root in proposals:
+        eds = extend_block(list(txs_), gov_max_square_size=APP_K, device="cpu")
+        if size != APP_K or DataAvailabilityHeader.from_eds(eds).hash() != data_root:
+            raise AssertionError("a throughput block's data root != extend_block on the CPU")
+    cpu_s = time.perf_counter() - t0
+    log(f"[{card}] planes throughput k={APP_K}: {result.blocks} blocks of "
+        f"{PLANES_THROUGHPUT['blob_size']}-byte blobs, fills "
+        f"{[round(f, 4) for f in result.fills]} (sustained(0.9)), block bytes "
+        f"{[row['block_bytes'] for row in rows]}, seconds "
+        f"{[round(row['seconds'], 3) for row in rows]}, launches per block {launches}; each "
+        f"data root == extend_block(txs, device='cpu') ({cpu_s:.3f} s for the {len(proposals)} on the CPU)")
+
+    # 5. Malicious proposals.
+    mgenesis, mtxs = app_chain(APP_GOLDEN, 64)
+    honest = fresh_app(mgenesis)
+    verdicts = {}
+    for behavior in (malicious.OUT_OF_ORDER, malicious.WRONG_ROOT):
+        evil = malicious.MaliciousApp(behavior=behavior)
+        evil.init_chain(mgenesis)
+        bad = evil.prepare_proposal(mtxs)
+        verdicts[behavior] = (bad.square_size, bad.hash.hex()[:16], honest.process_proposal(bad))
+    good = honest.prepare_proposal(mtxs)
+    if any(v[2] for v in verdicts.values()) or fresh_app(mgenesis).process_proposal(good) is not True:
+        raise AssertionError(f"malicious proposals: {verdicts}")
+    log(f"[{card}] planes malicious: the honest card App rejects {verdicts} "
+        f"(k, data root, verdict) and accepts the honest proposal {good.hash.hex()[:16]}")
+
+    # 6. The daemon's processes, started with the phase.
+    daemon.join(timeout=600)
+    if "error" in appd_out or "seconds" not in appd_out:
+        raise AssertionError(f"the appd processes: {appd_out.get('error', 'still running')}")
+    seconds = appd_out["seconds"]
+    lines = appd_out["start"].splitlines()
+    heights = [line.split()[0] for line in lines if line.startswith("height=")]
+    daemon_launches = [json.loads(line.split(" ", 1)[1]) for line in lines
+                       if line.startswith("launches ")]
+    if heights != ["height=1", "height=2"] or len(daemon_launches) != 2 or \
+            not any(line.startswith("warmed square sizes [1, 64]") for line in lines):
+        raise AssertionError(f"appd start: {appd_out['start'][-2000:]}")
+    check_launches("appd start", daemon_launches[-1],
+                   {"rs_dense": None, "sha256_leaf": None, "sha256": None})
+    status1, rolled, status2 = appd_out["status"], appd_out["rollback"], appd_out["status again"]
+    if (json.loads(status1)["height"], json.loads(status2)["height"]) != (2, 1) or \
+            "rolled back to height 1" not in rolled:
+        raise AssertionError(f"appd status / rollback: {status1} {rolled} {status2}")
+    log(f"[{card}] planes appd (beside the phase's other parts): init, start --blocks 2 "
+        f"--no-sleep --warmup minimal (launches in that process {daemon_launches[-1]}), status "
+        f"(height 2), rollback, status (height 1); seconds per process "
+        f"{{{', '.join(f'{k_}: {v:.3f}' for k_, v in seconds.items())}}}")
+    log(f"[{card}] planes: the phase {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -5184,6 +5602,8 @@ def main() -> int:
     phase_done("serve")
     ops_counts = phase_ops(torch, eds, card)
     phase_done("ops")
+    planes_counts = phase_planes(torch, card)
+    phase_done("planes")
     phase_uploads(torch, eds, card)
     phase_done("uploads")
     del eds
@@ -5216,7 +5636,8 @@ def main() -> int:
         f"per gossip height and validator {consensus['validators']}; per proof "
         f"query {query_counts}; in the bridge worker over its run {bridge_counts}; per DAS "
         f"payload and heal {serve_counts}; per gated GET, state-sync catch-up block and, per "
-        f"child, devnet height {ops_counts}")
+        f"child, devnet height {ops_counts}; per throughput block, gated GetShareProof and "
+        f"relayer proof {planes_counts}")
 
     # Each kernel's launches on the k=512 path that runs it: the column
     # phase's kernel names the path, the hashing kernels run on every path.

@@ -1051,3 +1051,130 @@ def test_devnet_on_card(cuda, tmp_path):
         assert hashes[0] == hashes[1]
     finally:
         net.stop()
+
+
+def _planes_node(device, window: int = 4):
+    """A served-node chain on `device`: a send and a PFB at height 1, empty
+    blocks to height 6, the Blobstream window on."""
+    from celestia_app_tpu_torch.rpc.server import ServingNode
+    from celestia_app_tpu_torch.testutil import deterministic_genesis, funded_keys
+    from celestia_app_tpu_torch.testutil.blocks import block_txs
+
+    keys = funded_keys(3)
+    node = ServingNode(genesis=deterministic_genesis(keys, n_validators=3, app_version=1,
+                                                     data_commitment_window=window),
+                       keys=keys, device=device)
+    node.peer_urls = []
+    for raw in block_txs(keys, node.chain_id, seed=17, sends=1, pfbs=3, blob_shares=(2, 6)):
+        assert node.broadcast(raw).code == 0
+    for _ in range(6):
+        node.produce_block()
+    return node
+
+
+def test_grpc_handlers_on_card_equal_cpu(cuda):
+    """Every query and DAS handler of the gRPC plane on a card node answers
+    the CPU node's bytes; a persistent proof fault raises DeviceFault."""
+    from celestia_app_tpu_torch import chaos
+    from celestia_app_tpu_torch.device import DeviceFault
+    from celestia_app_tpu_torch.encoding.proto import encode_bytes_field, encode_varint_field
+    from celestia_app_tpu_torch.rpc import grpc_plane
+
+    v, s = encode_varint_field, encode_bytes_field
+    reqs = [("celestia.tpu.das.v1.Das", "GetShareProof", v(1, 1) + v(2, r) + v(3, c))
+            for r, c in ((0, 0), (1, 5), (7, 7))]
+    reqs += [("celestia.tpu.das.v1.Das", "GetAttestation", v(1, 1) + s(2, b"0:0,3:4:col,6:1")),
+             ("celestia.qgb.v1.Query", "LatestAttestationNonce", b""),
+             ("cosmos.base.tendermint.v1beta1.Service", "GetLatestBlock", b""),
+             ("cosmos.staking.v1beta1.Query", "Validators", b"")]
+    answers = []
+    for device in (cuda, "cpu"):
+        handlers = grpc_plane._handlers(_planes_node(device))
+        answers.append([handlers[svc][m](req) for svc, m, req in reqs])
+        if device is cuda:
+            chaos.install("seed=1,proof_fail=1.0")
+            try:
+                with pytest.raises(DeviceFault):
+                    handlers["celestia.tpu.das.v1.Das"]["GetShareProof"](reqs[1][2])
+            finally:
+                chaos.uninstall()
+    assert answers[0] == answers[1]
+
+
+def test_throughput_on_card_equals_cpu(cuda):
+    from celestia_app_tpu_torch.testutil import TestNode, benchmark, deterministic_genesis
+    from celestia_app_tpu_torch.testutil import funded_keys
+
+    runs = []
+    for device in (cuda, "cpu"):
+        keys = funded_keys(2)
+        node = TestNode(deterministic_genesis(keys, gov_max_square_size=16), keys, device=device)
+        before = dict(_build.LAUNCHES)
+        result = benchmark.run_throughput(node, blocks=2, blob_size=20_000, target_fill=0.5)
+        runs.append((result.fills, node.app.cms.last_app_hash))
+        if device is cuda:
+            assert _build.LAUNCHES["rs_dense"] > before["rs_dense"]
+    assert runs[0] == runs[1] and min(runs[0][0]) >= 0.5
+
+
+def test_malicious_proposal_rejected_on_card(cuda):
+    from celestia_app_tpu_torch.app import App
+    from celestia_app_tpu_torch.state.dec import Dec
+    from celestia_app_tpu_torch.testutil import deterministic_genesis, funded_keys
+    from celestia_app_tpu_torch.testutil import malicious
+    from celestia_app_tpu_torch.testutil.blocks import block_txs
+
+    keys = funded_keys(2)
+    txs = block_txs(keys, "tpu-test-chain", seed=3, sends=0, pfbs=2, blob_shares=(2, 4))
+    honest = App(node_min_gas_price=Dec.from_str("0.000001"), device=cuda)
+    honest.init_chain(deterministic_genesis(keys))
+    for behavior in (malicious.OUT_OF_ORDER, malicious.WRONG_ROOT):
+        evil = malicious.MaliciousApp(behavior=behavior,
+                                      node_min_gas_price=Dec.from_str("0.000001"), device=cuda)
+        evil.init_chain(deterministic_genesis(keys))
+        assert not honest.process_proposal(evil.prepare_proposal(txs))
+    assert honest.process_proposal(honest.prepare_proposal(txs))
+
+
+def test_relayer_proofs_through_a_card_node(cuda):
+    """The relayer proves a PFB of a block the card extended."""
+    from celestia_app_tpu_torch.crypto.keys import PrivateKey
+    from celestia_app_tpu_torch.modules.blobstream import relayer
+    from celestia_app_tpu_torch.modules.blobstream.keeper import BridgeValidator
+    from celestia_app_tpu_torch.rpc.client import RemoteNode
+    from celestia_app_tpu_torch.rpc.server import serve
+    from celestia_app_tpu_torch.tx import tx_hash
+
+    node = _planes_node(cuda)
+    server = serve(node, port=0, block_interval_s=None)
+    try:
+        remote = RemoteNode(server.url)
+        vs = remote.latest_valset_before(remote.blobstream_nonces()["latest"])
+        seeds = [PrivateKey.from_seed(f"validator-{i}".encode()) for i in range(3)]
+        contract = relayer.BlobstreamContract(
+            vs["nonce"], tuple(BridgeValidator(m["address"], m["power"]) for m in vs["members"]),
+            {k.public_key().address(): k.public_key() for k in seeds})
+        orchs = [relayer.Orchestrator(k.public_key().address(), k) for k in seeds]
+        assert relayer.relay_pending(remote, contract, orchs) == 1
+        pfb = tx_hash(node.blocks[0].txs[-1])
+        assert relayer.verify_blob(remote, contract, pfb, 0)
+        assert relayer.verify_shares(remote, contract, 1, 0, 1)
+    finally:
+        server.stop()
+
+
+def test_appd_start_on_card(cuda, tmp_path):
+    """The daemon's default device is the card: its blocks launch kernels."""
+    import contextlib
+    import io
+
+    from celestia_app_tpu_torch.cmd import appd
+
+    home = str(tmp_path / "home")
+    assert appd.main(["--home", home, "init", "card-chain", "--gov-max-square-size", "4"]) == 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert appd.main(["--home", home, "start", "--blocks", "2", "--no-sleep"]) == 0
+    launches = [json.loads(line.split(" ", 1)[1]) for line in out.getvalue().splitlines()
+                if line.startswith("launches ")]
+    assert len(launches) == 2 and launches[-1]["sha256"] > 0

@@ -272,7 +272,12 @@ def test_profiler_window_writes_a_chrome_trace(monkeypatch, tmp_path):
     events = [r["event"] for r in traced().table("profiler")[-2:]]
     assert events == ["started", "stopped"]
     assert profiler.hbm_high_water() is None  # no card in this process
-    assert profiler.rss_high_water() == jax_profiler_rss()
+    # The process's peak RSS only rises, and may rise between two reads
+    # (torch.profiler's teardown allocates): the port's read lies between
+    # the JAX read before it and the JAX read after it.
+    before = jax_profiler_rss()
+    port = profiler.rss_high_water()
+    assert before <= port <= jax_profiler_rss()
 
 
 def jax_profiler_rss():

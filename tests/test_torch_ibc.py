@@ -28,39 +28,49 @@ set up once per module.
 from __future__ import annotations
 
 import gc
+import importlib
 import json
+import types
 
 import jax
 import pytest
 
-from celestia_app_tpu.modules.ibc import Channel as JaxChannel
-from celestia_app_tpu.modules.ibc import ChannelKeeper as JaxChannelKeeper
-from celestia_app_tpu.modules.ibc import Packet as JaxPacket
-from celestia_app_tpu.modules.ibc import voucher_denom
-from celestia_app_tpu.modules.ibc.transfer import SUCCESS_ACK, ack_is_error
+from celestia_app_tpu.modules.ibc.ica import CONTROLLER_PORT_PREFIX
 from celestia_app_tpu.testutil.ibc import TRANSFER_PORT, ConnectedChains, VerifiedChains
-from celestia_app_tpu.modules.ibc.core import _chan_key
-from celestia_app_tpu.modules.ibc.ica import (
-    CONTROLLER_PORT_PREFIX,
-    ICA_HOST_PORT,
-    ICAHostKeeper,
-    encode_packet_data,
-)
-from celestia_app_tpu.state.accounts import AuthKeeper, BankKeeper
-from celestia_app_tpu.state.staking import StakingKeeper
-from celestia_app_tpu.tx.messages import Coin as JaxCoin
-from celestia_app_tpu.tx.messages import MsgAcknowledgement as JaxMsgAcknowledgement
-from celestia_app_tpu.tx.messages import MsgDelegate as JaxMsgDelegate
-from celestia_app_tpu.tx.messages import MsgRecvPacket as JaxMsgRecvPacket
-from celestia_app_tpu.tx.messages import MsgSend as JaxMsgSend
-from celestia_app_tpu.tx.messages import MsgUnjail as JaxMsgUnjail
-from celestia_app_tpu.tx.sign import Fee, build_and_sign
 from celestia_app_tpu_torch.app import App
 from celestia_app_tpu_torch.convert import app_from_export
 from celestia_app_tpu_torch.crypto import PrivateKey
 from celestia_app_tpu_torch.modules import ibc as port_ibc
 from celestia_app_tpu_torch.state.dec import Dec
 from celestia_app_tpu_torch.testutil import deterministic_genesis
+
+
+def package(pkg: str) -> types.SimpleNamespace:
+    """The names the scenarios use, from package `pkg` (the JAX package or
+    the port), so that the same scenario drives either package's harness."""
+    def mod(name):
+        return importlib.import_module(f"{pkg}.{name}")
+
+    ns = types.SimpleNamespace()
+    for module, names in (
+        ("modules.ibc", ("Channel", "ChannelKeeper", "Packet", "voucher_denom")),
+        ("modules.ibc.transfer", ("SUCCESS_ACK", "ack_is_error")),
+        ("modules.ibc.core", ("_chan_key",)),
+        ("modules.ibc.ica", ("ICA_HOST_PORT", "ICAHostKeeper", "encode_packet_data")),
+        ("state.accounts", ("AuthKeeper", "BankKeeper")),
+        ("state.staking", ("StakingKeeper",)),
+        ("tx.messages", ("Coin", "MsgAcknowledgement", "MsgDelegate", "MsgRecvPacket",
+                         "MsgSend", "MsgUnjail")),
+        ("tx.sign", ("Fee", "build_and_sign")),
+        ("testutil.ibc", ("ConnectedChains", "VerifiedChains")),
+    ):
+        for name in names:
+            setattr(ns, name, getattr(mod(module), name))
+    return ns
+
+
+JAX = package("celestia_app_tpu")
+PORT = package("celestia_app_tpu_torch")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -119,27 +129,30 @@ def record(app) -> list[dict]:
     return blocks
 
 
-def recv(end, packet, key=None):
+def recv(end, packet, key=None, L=None):
+    L = L or JAX
     key = key or end.relayer
-    return end.submit(key, JaxMsgRecvPacket(packet.marshal(), key.public_key().address()))
+    return end.submit(key, L.MsgRecvPacket(packet.marshal(), key.public_key().address()))
 
 
-def scenarios_v2(chains: ConnectedChains) -> dict:
-    """The v2 scenarios on the JAX harness, each checked on the JAX side."""
+def scenarios_v2(chains: ConnectedChains, L=None) -> dict:
+    """The v2 scenarios on a harness of package `L` (default the JAX one),
+    each checked on that side."""
+    L = L or JAX
     a, b = chains.a, chains.b
     alice, bob = a.keys[0], b.keys[0]
     alice_addr, bob_addr = (k.public_key().address() for k in (alice, bob))
     # A transfer out, and the voucher back home.
     packet, res = chains.transfer(a, b, alice, bob_addr, "utia", 1_000)
-    assert res.code == 0 and chains.relay(packet, src=a, dst=b) == SUCCESS_ACK
-    voucher = voucher_denom(TRANSFER_PORT, b.channel_id, "utia")
+    assert res.code == 0 and chains.relay(packet, src=a, dst=b) == L.SUCCESS_ACK
+    voucher = L.voucher_denom(TRANSFER_PORT, b.channel_id, "utia")
     packet, res = chains.transfer(b, a, bob, alice_addr, voucher, 400)
-    assert res.code == 0 and chains.relay(packet, src=b, dst=a) == SUCCESS_ACK
+    assert res.code == 0 and chains.relay(packet, src=b, dst=a) == L.SUCCESS_ACK
     assert b.balance(bob_addr, denom=voucher) == 600
     # B's own token refused by celestia's tokenfilter, refunded on B.
     packet, res = chains.transfer(b, a, b.keys[1], alice_addr, "utia", 500)
     ack = chains.relay(packet, src=b, dst=a)
-    assert res.code == 0 and ack_is_error(ack) and b"only native denom" in ack
+    assert res.code == 0 and L.ack_is_error(ack) and b"only native denom" in ack
     # A timeout refund.
     packet, res = chains.transfer(a, b, a.keys[1], "beta1receiver", "utia", 700,
                                   timeout_height=3)
@@ -151,7 +164,7 @@ def scenarios_v2(chains: ConnectedChains) -> dict:
     raws = []
     for key in (b.relayer, b.keys[2]):
         addr = key.public_key().address()
-        raws.append(b.node.broadcast(_signed_recv(b, key, packet, addr)))
+        raws.append(b.node.broadcast(_signed_recv(b, key, packet, addr, L)))
     assert [r.code for r in raws] == [0, 0]
     _, results = b.node.produce_block()
     assert [r.code for r in results] == [0, 0]
@@ -160,40 +173,42 @@ def scenarios_v2(chains: ConnectedChains) -> dict:
     final_addr = a.keys[1].public_key().address()
     memo = json.dumps({"forward": {"receiver": final_addr, "channel": b.channel_id}})
     packet, res = chains.transfer(a, b, alice, bob_addr, "utia", 250, memo=memo)
-    res, results = recv(b, packet)
+    res, results = recv(b, packet, L=L)
     onward = chains._sent_packet(results)
     assert res.code == 0 and onward is not None
-    assert chains.relay(onward, src=b, dst=a) == SUCCESS_ACK
+    assert chains.relay(onward, src=b, dst=a) == L.SUCCESS_ACK
     return {}
 
 
-def scenarios_v1(chains: ConnectedChains) -> dict:
+def scenarios_v1(chains: ConnectedChains, L=None) -> dict:
+    L = L or JAX
     a, b = chains.a, chains.b
     memo = json.dumps({"forward": {"receiver": "whoever", "channel": b.channel_id}})
     packet, res = chains.transfer(a, b, a.keys[0], b.keys[0].public_key().address(), "utia",
                                   9, memo=memo)
     assert res.code == 0
-    res, results = recv(b, packet)
+    res, results = recv(b, packet, L=L)
     assert res.code == 0 and chains._sent_packet(results) is None  # no PFM at v1
     ack = chains._written_ack(results)
-    res, _ = a.submit(a.relayer, JaxMsgAcknowledgement(
+    res, _ = a.submit(a.relayer, L.MsgAcknowledgement(
         packet.marshal(), a.relayer.public_key().address(), ack))
-    assert ack == SUCCESS_ACK and res.code == 0
-    ica_refused_at_v1(chains)
+    assert ack == L.SUCCESS_ACK and res.code == 0
+    ica_refused_at_v1(chains, L)
     return {}
 
 
-def _signed_recv(end, key, packet, addr: str) -> bytes:
-    acct = AuthKeeper(end.node.app.cms.working).get_account(addr)
-    return build_and_sign([JaxMsgRecvPacket(packet.marshal(), addr)], key, end.node.chain_id,
-                          acct.account_number, acct.sequence,
-                          Fee((JaxCoin("utia", 20_000),), 400_000))
+def _signed_recv(end, key, packet, addr: str, L) -> bytes:
+    acct = L.AuthKeeper(end.node.app.cms.working).get_account(addr)
+    return L.build_and_sign([L.MsgRecvPacket(packet.marshal(), addr)], key, end.node.chain_id,
+                            acct.account_number, acct.sequence,
+                            L.Fee((L.Coin("utia", 20_000),), 400_000))
 
 
-def scenarios_verified(chains: VerifiedChains) -> dict:
+def scenarios_verified(chains: VerifiedChains, L=None) -> dict:
     """Light clients of each other, the connection and channel handshakes,
     then a transfer relayed with proofs both ways and a timeout refunded on
     a proof of non-receipt."""
+    L = L or JAX
     chains.handshake()
     a, b = chains.a, chains.b
     packet, res = chains.transfer(a, b, a.keys[0], b.keys[0].public_key().address(), "utia",
@@ -201,7 +216,7 @@ def scenarios_verified(chains: VerifiedChains) -> dict:
     assert res.code == 0, res.log
     res, results = chains.relay_recv(packet, a, b)
     ack = chains._written_ack(results)
-    assert res.code == 0 and ack == SUCCESS_ACK, res.log
+    assert res.code == 0 and ack == L.SUCCESS_ACK, res.log
     res, _ = chains.relay_ack(packet, ack, a, b)
     assert res.code == 0, res.log
     packet, res = chains.transfer(a, b, a.keys[1], b.keys[0].public_key().address(), "utia",
@@ -216,60 +231,61 @@ def scenarios_verified(chains: VerifiedChains) -> dict:
 OWNER_PORT = CONTROLLER_PORT_PREFIX + "alice"
 
 
-def ica_host(chains: ConnectedChains) -> tuple:
+def ica_host(chains: ConnectedChains, L) -> tuple:
     """Chain a hosts an interchain account for chain b's controller port,
     over an ORDERED channel pair the harness opens directly; the account is
     registered and funded the same way (writes to the working store)."""
     a, b = chains.a, chains.b
-    for end, port, counterparty in ((a, ICA_HOST_PORT, OWNER_PORT),
-                                    (b, OWNER_PORT, ICA_HOST_PORT)):
-        JaxChannelKeeper(end.store).create_channel(JaxChannel(
+    for end, port, counterparty in ((a, L.ICA_HOST_PORT, OWNER_PORT),
+                                    (b, OWNER_PORT, L.ICA_HOST_PORT)):
+        L.ChannelKeeper(end.store).create_channel(L.Channel(
             port, "channel-7", counterparty, "channel-7", version="ics27-1",
             ordering="ORDERED"))
-    ica = ICAHostKeeper(a.store).register_account(AuthKeeper(a.store), "", OWNER_PORT)
-    BankKeeper(a.store).mint(ica, 1_000_000)
+    ica = L.ICAHostKeeper(a.store).register_account(L.AuthKeeper(a.store), "", OWNER_PORT)
+    L.BankKeeper(a.store).mint(ica, 1_000_000)
     return a, b, ica
 
 
-def ica_recv(chains, a, b, msgs, sequence: int) -> tuple:
+def ica_recv(chains, a, b, msgs, sequence: int, L) -> tuple:
     """Relay one ICA packet of `msgs` to the host; returns (code, ack)."""
-    packet = JaxPacket(sequence, OWNER_PORT, "channel-7", ICA_HOST_PORT, "channel-7",
-                       encode_packet_data(msgs))
-    res, results = recv(a, packet)
+    packet = L.Packet(sequence, OWNER_PORT, "channel-7", L.ICA_HOST_PORT, "channel-7",
+                      L.encode_packet_data(msgs))
+    res, results = recv(a, packet, L=L)
     return res.code, chains._written_ack(results), packet
 
 
-def scenarios_ica(chains: ConnectedChains) -> dict:
+def scenarios_ica(chains: ConnectedChains, L=None) -> dict:
     """The ICA host at v2: the inner messages run through the App's own
     handlers (a send and a delegation), a message signed by another
     account and one off the allow list get error acks, and the ack of the
     send is relayed back to the controller."""
-    a, b, ica = ica_host(chains)
+    L = L or JAX
+    a, b, ica = ica_host(chains, L)
     to = a.keys[0].public_key().address()
-    validator = StakingKeeper(a.store).validators()[0].address
-    code, ack, packet = ica_recv(chains, a, b, [JaxMsgSend(ica, to, (JaxCoin("utia", 40_000),))],
-                                 1)
+    validator = L.StakingKeeper(a.store).validators()[0].address
+    code, ack, packet = ica_recv(chains, a, b, [L.MsgSend(ica, to, (L.Coin("utia", 40_000),))],
+                                 1, L)
     assert (code, ack) == (0, b'{"result":"AQ=="}')
-    b.store.set(_chan_key(b"commit", OWNER_PORT, "channel-7", 1), packet.commitment())
-    res, _ = b.submit(b.relayer, JaxMsgAcknowledgement(
+    b.store.set(L._chan_key(b"commit", OWNER_PORT, "channel-7", 1), packet.commitment())
+    res, _ = b.submit(b.relayer, L.MsgAcknowledgement(
         packet.marshal(), b.relayer.public_key().address(), ack))
     assert res.code == 0, res.log
     code, ack, _ = ica_recv(chains, a, b,
-                            [JaxMsgDelegate(ica, validator, JaxCoin("utia", 500_000))], 2)
+                            [L.MsgDelegate(ica, validator, L.Coin("utia", 500_000))], 2, L)
     assert (code, ack) == (0, b'{"result":"AQ=="}')
-    code, ack, _ = ica_recv(chains, a, b, [JaxMsgSend(to, ica, (JaxCoin("utia", 999),))], 3)
+    code, ack, _ = ica_recv(chains, a, b, [L.MsgSend(to, ica, (L.Coin("utia", 999),))], 3, L)
     assert code == 0 and b"not the interchain account" in ack
-    code, ack, _ = ica_recv(chains, a, b, [JaxMsgUnjail(ica)], 4)
+    code, ack, _ = ica_recv(chains, a, b, [L.MsgUnjail(ica)], 4, L)
     assert code == 0 and b"not in the ICA allow list" in ack
     return {}
 
 
-def ica_refused_at_v1(chains: ConnectedChains) -> None:
-    a, b, ica = ica_host(chains)
-    msg = JaxMsgSend(ica, a.keys[0].public_key().address(), (JaxCoin("utia", 1),))
-    packet = JaxPacket(1, OWNER_PORT, "channel-7", ICA_HOST_PORT, "channel-7",
-                       encode_packet_data([msg]))
-    res, _ = recv(a, packet)
+def ica_refused_at_v1(chains: ConnectedChains, L) -> None:
+    a, b, ica = ica_host(chains, L)
+    msg = L.MsgSend(ica, a.keys[0].public_key().address(), (L.Coin("utia", 1),))
+    packet = L.Packet(1, OWNER_PORT, "channel-7", L.ICA_HOST_PORT, "channel-7",
+                      L.encode_packet_data([msg]))
+    res, _ = recv(a, packet, L=L)
     assert res.code == 2 and "v2 module" in res.log
 
 
@@ -336,3 +352,25 @@ def test_recorded_scenarios_cover_every_relay_message(recorded):
              for r in b["results"] for e in r[4]}
     assert {"ibc.send_packet", "ibc.write_acknowledgement", "ibc.acknowledge_packet",
             "ibc.timeout_packet", "ibc.noop"} <= kinds
+
+
+SCENARIOS = {"v2": (2, "ConnectedChains", scenarios_v2), "v1": (1, "ConnectedChains", scenarios_v1),
+             "ica": (2, "ConnectedChains", scenarios_ica),
+             "verified": (2, "VerifiedChains", scenarios_verified)}
+
+
+@pytest.mark.parametrize("name", ["v1", "v2", "verified"])
+def test_port_harness_drives_both_ends(recorded, name):
+    """The port's own harness (testutil/ibc.py, device="cpu") runs the same
+    scenario on two port chain ends: at every height each end's app hash
+    is the JAX harness's."""
+    version, make, scenarios = SCENARIOS[name]
+    chains = getattr(PORT, make)(app_version=version, device="cpu")
+    scenarios(chains, PORT)
+    for label, end in (("alpha", chains.a), ("beta", chains.b)):
+        jax_end = recorded[f"{name}_{label}"][0]
+        assert end.height == jax_end.height >= 1
+        assert [end.app_hash_at(h) for h in range(1, end.height + 1)] == \
+            [jax_end.app_hash_at(h) for h in range(1, end.height + 1)], label
+    assert (chains.a.channel_id, chains.b.channel_id) == \
+        (recorded[f"{name}_alpha"][0].channel_id, recorded[f"{name}_beta"][0].channel_id)

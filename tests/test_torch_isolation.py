@@ -5,8 +5,9 @@ Two checks: every module of celestia_app_tpu_torch (the multi-device plane,
 the ABCI App and its block execution's keepers and IBC stack, the mempool,
 the in-process node and its clients, the round machine, the vote WAL, the
 chaos spec and the gossip-driven serving node, the protocol adversary, the
-DAS provider, the healing loop and the height timeline included) imported
-in a fresh
+DAS provider, the healing loop and the height timeline, the gRPC plane, the
+REST gateway, the daemon, the tools, the harnesses and the Blobstream
+relayer included) imported in a fresh
 interpreter leaves no `jax`,
 `celestia_app_tpu.*` or `cryptography` module in sys.modules, and no source
 of the port (nor chip_smoke.py) names one in an import statement, including
@@ -68,7 +69,10 @@ def test_importing_every_port_module_loads_no_jax():
                  "trace.round_journal", "trace.flight_recorder", "chaos", "chaos.spec",
                  "chaos.degrade", "rpc", "rpc.transport", "rpc.codec", "rpc.gossip",
                  "rpc.server", "rpc.client", "chaos.adversary", "serve.api", "serve.heal",
-                 "trace.timeline"):
+                 "trace.timeline", "rpc.grpc_plane", "rpc.api_gateway", "cmd.appd",
+                 "cmd.config", "tools.blockscan", "tools.blocktime", "testutil.benchmark",
+                 "testutil.malicious", "testutil.ibc", "crypto.keccak",
+                 "modules.blobstream.evm", "modules.blobstream.relayer"):
         assert f"celestia_app_tpu_torch.{name}" in result["imported"]
     assert result["forbidden"] == []
 
@@ -82,3 +86,27 @@ def test_no_source_imports_jax_or_the_jax_package(path):
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
             names.append(node.module)
     assert not [n for n in names if _top_level(n) in FORBIDDEN], names
+
+
+_WITHOUT_GRPC = """
+import sys
+sys.modules["grpc"] = None  # `import grpc` raises ImportError
+import celestia_app_tpu_torch.rpc.api_gateway as gateway
+import celestia_app_tpu_torch.rpc.grpc_plane as plane
+page = plane._parse_page_request(b"", 2)
+items, resp = plane._paginate([1, 2, 3], dict(page, limit=2, count_total=True))
+assert items == [1, 2] and plane._parse_page_response(resp) == {"next_key": b"2", "total": 3}
+try:
+    plane.serve_grpc(object())
+except ImportError:
+    print("ok")
+"""
+
+
+def test_the_planes_import_without_grpc():
+    """The gRPC plane imports grpcio only where a server or a channel is
+    made; the REST gateway and the shared pagination run without it."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _WITHOUT_GRPC], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300, check=True)
+    assert out.stdout.strip() == "ok"
