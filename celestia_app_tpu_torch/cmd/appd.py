@@ -18,9 +18,10 @@ differences:
     `start --warmup` pays its first calls); without a card it raises
     rather than carrying on on the CPU.  `--device cpu` runs the plain
     PyTorch versions of the kernels (the CPU tests);
-  * `start` prints this process's kernel launches, `launches {json}`, after
-    each produced height, so that a caller can see that the blocks went
-    through the card's kernels (all zero with `--device cpu`).
+  * `start` prints the kernel launches of each produced height, `launches
+    {json}`, counted from zero just before that height (the warm-up's are
+    not in them), so that a caller can see that each block went through the
+    card's kernels (all zero with `--device cpu`).
 Homes are the same files in both packages: a home written by one daemon
 loads in the other at the same app hash.
 """
@@ -337,6 +338,7 @@ def cmd_start(args) -> int:
           flush=True)
     produced = 0
     while args.blocks == 0 or produced < args.blocks:
+        _build.reset_launches()
         time_ns = max(time.time_ns(), app.last_block_time_ns + 1)
         if node is not None:
             # Served mode: production goes through the node so mempool txs

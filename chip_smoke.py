@@ -101,9 +101,10 @@ Phases, in order; any failure raises and the script exits non-zero:
              one with a dead proposer and one with an injected launch fault
              that outlasts the ladder (each phase's docstring says what it
              checks);
- 21. giant   k=1024 and k=2048 (GF(2^16)): the materializing fused, epi and
-             XOR lowerings and the panel-streamed one ($CELESTIA_PIPE_PANEL:
-             64-row panels, 48-row panels at k=1024, the FFT column leg):
+ 21. giant   k=1024 and k=2048 (GF(2^16)): the materializing fused and epi
+             lowerings, XOR at k=1024, and the panel-streamed one
+             ($CELESTIA_PIPE_PANEL: 64-row panels, 48-row panels at k=1024,
+             the FFT column leg):
              one data root and one EDS per k, the roots-only twins, 64
              parity shares per k == the host additive FFT, launches per
              lowering as counted from the code, wall and device time and
@@ -1950,12 +1951,15 @@ def phase_planes(torch, card: str) -> dict:
          PLANES_THROUGHPUT (the JAX suite's k=128 setting): sustained(0.9),
          each block's fill, seconds and launches, each data root ==
          extend_block(txs, device="cpu");
-      5. each MaliciousApp behaviour's proposal of the golden block is
-         rejected by an honest App on the card, which accepts the honest
-         one;
-      6. the daemon in subprocesses on the card, run beside 1-5: init,
-         start --blocks 2 --no-sleep --warmup minimal (its launches lines
-         show the card's kernels ran), status, rollback, status.
+      5. each MaliciousApp behaviour's proposal of step 1's k=APP_K block
+         (its genesis and signed txs) is rejected by an honest App on the
+         card, which accepts the honest one;
+      6. the daemon in subprocesses on the card: init, start --blocks 2
+         --no-sleep --warmup minimal (each height's launches, counted from
+         zero by the daemon, show that its block went through the card's
+         kernels), status, rollback, status.  They start once step 4's
+         blocks are timed and run beside its CPU check and step 5, so no
+         timed part of 1-4 shares the card or the host with them.
     Returns the launches per throughput block, per gated GetShareProof and
     per relayer proof."""
     import threading
@@ -1984,12 +1988,6 @@ def phase_planes(torch, card: str) -> dict:
 
     t_phase = time.perf_counter()
     out: dict = {}
-    # 6. The daemon's processes run beside the in-process parts (each
-    # spends most of its ~10 s importing torch and reaching the card); their
-    # kernel counters are their own.
-    appd_out: dict = {}
-    daemon = threading.Thread(target=appd_sequence, args=(appd_out,), daemon=True)
-    daemon.start()
     have_grpc, grpc_line = grpc_status()
     log(f"[{card}] planes: {grpc_line}; " + (
         "the gRPC checks go over a channel (serve_grpc + GrpcNode)" if have_grpc else
@@ -2210,36 +2208,47 @@ def phase_planes(torch, card: str) -> dict:
         check_launches(f"throughput block {i + 1}", counts,
                        {"rs_dense": None, "sha256_leaf": None, "sha256": None})
     out["throughput block"] = launches[0]
-    t0 = time.perf_counter()
-    for txs_, size, data_root in proposals:
-        eds = extend_block(list(txs_), gov_max_square_size=APP_K, device="cpu")
-        if size != APP_K or DataAvailabilityHeader.from_eds(eds).hash() != data_root:
-            raise AssertionError("a throughput block's data root != extend_block on the CPU")
-    cpu_s = time.perf_counter() - t0
-    log(f"[{card}] planes throughput k={APP_K}: {result.blocks} blocks of "
-        f"{PLANES_THROUGHPUT['blob_size']}-byte blobs, fills "
-        f"{[round(f, 4) for f in result.fills]} (sustained(0.9)), block bytes "
-        f"{[row['block_bytes'] for row in rows]}, seconds "
-        f"{[round(row['seconds'], 3) for row in rows]}, launches per block {launches}; each "
-        f"data root == extend_block(txs, device='cpu') ({cpu_s:.3f} s for the {len(proposals)} on the CPU)")
+    # 6. The daemon's processes (each spends most of its ~10 s importing
+    # torch and reaching the card; their kernel counters are their own) run
+    # from here beside the untimed rest.
+    appd_out: dict = {}
+    daemon = threading.Thread(target=appd_sequence, args=(appd_out,), daemon=True)
+    daemon.start()
+    try:
+        t0 = time.perf_counter()
+        for txs_, size, data_root in proposals:
+            eds = extend_block(list(txs_), gov_max_square_size=APP_K, device="cpu")
+            if size != APP_K or DataAvailabilityHeader.from_eds(eds).hash() != data_root:
+                raise AssertionError("a throughput block's data root != extend_block on the CPU")
+        cpu_s = time.perf_counter() - t0
+        log(f"[{card}] planes throughput k={APP_K}: {result.blocks} blocks of "
+            f"{PLANES_THROUGHPUT['blob_size']}-byte blobs, fills "
+            f"{[round(f, 4) for f in result.fills]} (sustained(0.9)), block bytes "
+            f"{[row['block_bytes'] for row in rows]}, seconds "
+            f"{[round(row['seconds'], 3) for row in rows]}, launches per block {launches}; each "
+            f"data root == extend_block(txs, device='cpu') ({cpu_s:.3f} s for the {len(proposals)} on the CPU)")
 
-    # 5. Malicious proposals.
-    mgenesis, mtxs = app_chain(APP_GOLDEN, 64)
-    honest = fresh_app(mgenesis)
-    verdicts = {}
-    for behavior in (malicious.OUT_OF_ORDER, malicious.WRONG_ROOT):
-        evil = malicious.MaliciousApp(behavior=behavior)
-        evil.init_chain(mgenesis)
-        bad = evil.prepare_proposal(mtxs)
-        verdicts[behavior] = (bad.square_size, bad.hash.hex()[:16], honest.process_proposal(bad))
-    good = honest.prepare_proposal(mtxs)
-    if any(v[2] for v in verdicts.values()) or fresh_app(mgenesis).process_proposal(good) is not True:
-        raise AssertionError(f"malicious proposals: {verdicts}")
-    log(f"[{card}] planes malicious: the honest card App rejects {verdicts} "
-        f"(k, data root, verdict) and accepts the honest proposal {good.hash.hex()[:16]}")
+        # 5. Malicious proposals of step 1's k=APP_K block.
+        t0 = time.perf_counter()
+        honest = fresh_app(genesis)
+        verdicts = {}
+        for behavior in (malicious.OUT_OF_ORDER, malicious.WRONG_ROOT):
+            evil = malicious.MaliciousApp(behavior=behavior)
+            evil.init_chain(genesis)
+            bad = evil.prepare_proposal(txs)
+            verdicts[behavior] = (bad.square_size, bad.hash.hex()[:16], honest.process_proposal(bad))
+        good = honest.prepare_proposal(txs)
+        if any(v[2] or v[0] != APP_K for v in verdicts.values()) or good.square_size != APP_K or \
+                fresh_app(genesis).process_proposal(good) is not True:
+            raise AssertionError(f"malicious proposals: {verdicts}, honest k={good.square_size}")
+        log(f"[{card}] planes malicious: the honest card App rejects {verdicts} "
+            f"(k, data root, verdict) and accepts the honest proposal {good.hash.hex()[:16]} "
+            f"({time.perf_counter() - t0:.3f} s)")
+    finally:
+        # No appd process outlives the phase, whatever failed above.
+        daemon.join(timeout=600)
 
-    # 6. The daemon's processes, started with the phase.
-    daemon.join(timeout=600)
+    # 6. The daemon's processes.
     if "error" in appd_out or "seconds" not in appd_out:
         raise AssertionError(f"the appd processes: {appd_out.get('error', 'still running')}")
     seconds = appd_out["seconds"]
@@ -2250,14 +2259,15 @@ def phase_planes(torch, card: str) -> dict:
     if heights != ["height=1", "height=2"] or len(daemon_launches) != 2 or \
             not any(line.startswith("warmed square sizes [1, 64]") for line in lines):
         raise AssertionError(f"appd start: {appd_out['start'][-2000:]}")
-    check_launches("appd start", daemon_launches[-1],
-                   {"rs_dense": None, "sha256_leaf": None, "sha256": None})
+    for height, counts in enumerate(daemon_launches, start=1):
+        check_launches(f"appd start, height {height}", counts,
+                       {"rs_dense": None, "sha256_leaf": None, "sha256": None})
     status1, rolled, status2 = appd_out["status"], appd_out["rollback"], appd_out["status again"]
     if (json.loads(status1)["height"], json.loads(status2)["height"]) != (2, 1) or \
             "rolled back to height 1" not in rolled:
         raise AssertionError(f"appd status / rollback: {status1} {rolled} {status2}")
-    log(f"[{card}] planes appd (beside the phase's other parts): init, start --blocks 2 "
-        f"--no-sleep --warmup minimal (launches in that process {daemon_launches[-1]}), status "
+    log(f"[{card}] planes appd (beside step 4's CPU check and step 5): init, start --blocks 2 "
+        f"--no-sleep --warmup minimal (launches per height {daemon_launches}), status "
         f"(height 2), rollback, status (height 1); seconds per process "
         f"{{{', '.join(f'{k_}: {v:.3f}' for k_, v in seconds.items())}}}")
     log(f"[{card}] planes: the phase {time.perf_counter() - t_phase:.1f} s")
@@ -5072,9 +5082,9 @@ def phase_giant(torch, card: str) -> dict:
     twin's roots too; 64 parity shares == the host FFT encode; launches
     per lowering as giant_launches counts them; BlockPipeline under panel
     auto (4 squares, depth 2, batch asked 4): roots == one-shot compute,
-    journal rows of batch 1 and 16 panels.  k=2048: fused, epi, XOR, panel
-    auto and the panel FFT leg (column-blocked), one root, 64 shares ==
-    the host FFT.  Beside them: the generator's host build, wall and
+    journal rows of batch 1 and 16 panels.  k=2048: fused, epi, panel auto
+    and the panel FFT leg (column-blocked), one root, 64 shares == the host
+    FFT (XOR, ~31 s at this size, only at k=1024: the script's time limit).  Beside them: the generator's host build, wall and
     device time, peak memory per lowering, the column phase dense against
     column-blocked FFT, the panel column partial's layout moves and XOR
     against its rs_dense launch, and rs_dense == its plain version on
@@ -5106,7 +5116,7 @@ def phase_giant(torch, card: str) -> dict:
         n_panels = {"panel auto": k // rows, "panel 48": -(-k // 48),
                     "panel auto fft": k // rows}
         lowerings = list(GIANT_LOWERINGS) if k == GIANT_KS[0] else \
-            ["fused", "epi", "xor", "panel auto", "panel auto fft"]
+            ["fused", "epi", "panel auto", "panel auto fft"]
         ref = None
         for name in lowerings:
             env = {**GIANT_BASE, **GIANT_LOWERINGS[name]}

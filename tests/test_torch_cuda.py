@@ -1164,17 +1164,23 @@ def test_relayer_proofs_through_a_card_node(cuda):
 
 
 def test_appd_start_on_card(cuda, tmp_path):
-    """The daemon's default device is the card: its blocks launch kernels."""
+    """The daemon's default device is the card: each of its blocks launches
+    the extend's kernels (counted per height, from zero)."""
     import contextlib
     import io
 
     from celestia_app_tpu_torch.cmd import appd
+    from celestia_app_tpu_torch.kernels import _build
 
     home = str(tmp_path / "home")
     assert appd.main(["--home", home, "init", "card-chain", "--gov-max-square-size", "4"]) == 0
     out = io.StringIO()
+    _build.reset_launches()
     with contextlib.redirect_stdout(out):
         assert appd.main(["--home", home, "start", "--blocks", "2", "--no-sleep"]) == 0
     launches = [json.loads(line.split(" ", 1)[1]) for line in out.getvalue().splitlines()
                 if line.startswith("launches ")]
-    assert len(launches) == 2 and launches[-1]["sha256"] > 0
+    assert len(launches) == 2
+    for height in launches:
+        assert all(height[name] > 0 for name in ("rs_dense", "sha256_leaf", "sha256")), height
+    assert _build.LAUNCHES == launches[-1]

@@ -124,14 +124,19 @@ def mounted(providers, monkeypatch):
     """Both providers mounted on fresh process state: a new metrics registry,
     a new default tracer and height timeline, an SLO engine on stepped
     clocks, a pinned scrape
-    timestamp, and the coverage, heal, namespace, fleet, chaos, QoS and
-    ladder state reset.  Everything swapped is restored afterwards."""
+    timestamp, the flight recorder off, no residual-growth streak in the
+    device ledgers, and the coverage, heal, namespace, fleet, chaos, QoS
+    and ladder state reset.  Everything swapped is restored afterwards."""
     monkeypatch.setenv("CELESTIA_SCRAPE_TS_S", "0")
     monkeypatch.delenv("CELESTIA_FLEET_PEERS", raising=False)
+    monkeypatch.delenv("CELESTIA_FLIGHT_DIR", raising=False)
     monkeypatch.setenv("CELESTIA_SLO_TICK_S", "0")
     monkeypatch.setattr(time, "time", lambda: NOW)
     for pkg, provider in zip(PACKAGES, providers):
         monkeypatch.setattr(pkg.metrics, "_REGISTRY", pkg.metrics.Registry())
+        monkeypatch.setattr(pkg.exposition, "_LAST_SCRAPE_TS", None)
+        monkeypatch.setattr(pkg.ledger, "_RESIDUAL_STREAK", 0)
+        monkeypatch.setattr(pkg.ledger, "_LAST_RESIDUAL", None)
         fresh = pkg.tracer.Tracer()
         monkeypatch.setattr(pkg.tracer, "_default", fresh)
         monkeypatch.setattr(pkg.tracer, "_TIMELINE_INSTALLED", True)

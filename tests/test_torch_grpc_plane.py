@@ -311,10 +311,14 @@ def test_txclient_over_a_grpc_channel():
 def test_three_planes_serve_the_same_metrics(monkeypatch):
     pytest.importorskip("grpc")
     from celestia_app_tpu_torch.rpc.api_gateway import serve_api
-    from celestia_app_tpu_torch.trace import slo
+    from celestia_app_tpu_torch.trace import exposition, slo
 
     monkeypatch.setenv("CELESTIA_SLO_TICK_S", "3600")
     monkeypatch.setenv("CELESTIA_SCRAPE_TS_S", "3600")
+    # The scrapes below stamp the wall clock; give the process its old
+    # stamp back afterwards, so that a later test on a pinned clock still
+    # refreshes the gauge.
+    monkeypatch.setattr(exposition, "_LAST_SCRAPE_TS", None)
     node, http = served_port_node(None)
     gw = serve_api(node)
     plane = grpc_plane.serve_grpc(node)

@@ -359,7 +359,7 @@ SCENARIOS = {"v2": (2, "ConnectedChains", scenarios_v2), "v1": (1, "ConnectedCha
              "verified": (2, "VerifiedChains", scenarios_verified)}
 
 
-@pytest.mark.parametrize("name", ["v1", "v2", "verified"])
+@pytest.mark.parametrize("name", ["v1", "v2", "ica", "verified"])
 def test_port_harness_drives_both_ends(recorded, name):
     """The port's own harness (testutil/ibc.py, device="cpu") runs the same
     scenario on two port chain ends: at every height each end's app hash
