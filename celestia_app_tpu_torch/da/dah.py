@@ -36,6 +36,30 @@ class DataAvailabilityHeader:
         """Data root: merkle root over row roots then column roots."""
         return merkle.hash_from_byte_slices(self.row_roots + self.column_roots)
 
+    def marshal(self) -> bytes:
+        """Proto wire form (proto/celestia/core/v1/da: row_roots=1,
+        column_roots=2), byte-equal to the JAX package's."""
+        from celestia_app_tpu_torch.encoding.proto import encode_bytes_field
+
+        out = b""
+        for r in self.row_roots:
+            out += encode_bytes_field(1, r)
+        for c in self.column_roots:
+            out += encode_bytes_field(2, c)
+        return out
+
+    @classmethod
+    def unmarshal(cls, raw: bytes) -> "DataAvailabilityHeader":
+        from celestia_app_tpu_torch.encoding.proto import WIRE_LEN, decode_fields
+
+        rows, cols = [], []
+        for num, wt, val in decode_fields(raw):
+            if num == 1 and wt == WIRE_LEN:
+                rows.append(val)
+            elif num == 2 and wt == WIRE_LEN:
+                cols.append(val)
+        return cls(rows, cols)
+
     def validate_basic(self) -> None:
         nr, nc = len(self.row_roots), len(self.column_roots)
         if nr != nc:

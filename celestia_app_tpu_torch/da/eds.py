@@ -593,6 +593,17 @@ def _host_bytes(ods) -> np.ndarray:
     return np.ascontiguousarray(ods, dtype=np.uint8)
 
 
+def _speculation_counter():
+    from celestia_app_tpu_torch.trace.metrics import registry
+
+    return registry().counter(
+        "celestia_speculation_total",
+        "speculative extends by outcome: hit (claimed) / discard "
+        "(content or construction changed before adoption, e.g. a round "
+        "change re-proposed the square)",
+    )
+
+
 class SpeculativeExtender:
     """One in-flight speculative extend: the next proposal's square.
 
@@ -604,7 +615,8 @@ class SpeculativeExtender:
     caller's stream wait on that event; any mismatch discards the entry.
     `discard()` is the explicit round-change hook.  At most one entry: a
     second speculate() replaces, and counts as discarding, the first.
-    `outcomes` counts hits and discards."""
+    `outcomes` counts hits and discards, as `celestia_speculation_total
+    {outcome}` does process-wide."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -654,6 +666,7 @@ class SpeculativeExtender:
         with self._lock:
             if self._entry is not None:
                 self.outcomes["discard"] += 1
+                _speculation_counter().inc(outcome="discard")
             self._entry = {"digest": self._digest(host), "height": height, "round": round_,
                            "k": k, "construction": construction, "device": dev,
                            "mode": mode, "outputs": out, "done": done}
@@ -673,9 +686,11 @@ class SpeculativeExtender:
                 or entry["digest"] != self._digest(_host_bytes(ods))):
             with self._lock:
                 self.outcomes["discard"] += 1
+            _speculation_counter().inc(outcome="discard")
             return None
         with self._lock:
             self.outcomes["hit"] += 1
+        _speculation_counter().inc(outcome="hit")
         hand_over(entry["outputs"], entry["done"])
         return ExtendedDataSquare(*entry["outputs"], entry["k"]), entry["mode"]
 
@@ -686,6 +701,8 @@ class SpeculativeExtender:
             entry, self._entry = self._entry, None
             if entry is not None:
                 self.outcomes["discard"] += 1
+        if entry is not None:
+            _speculation_counter().inc(outcome="discard")
         return entry is not None
 
     def pending(self) -> bool:

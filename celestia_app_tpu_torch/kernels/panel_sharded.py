@@ -280,7 +280,7 @@ def _sharded_runner(k: int, construction: str, roots_only: bool, mesh: Mesh, row
         mesh.enter()
         try:
             out = _run(x)
-        except BaseException:
+        except BaseException:  # chaos-ok: re-raised once the shards are idle
             # Nothing of a failed run may still read the caller's input.
             mesh.synchronize()
             raise

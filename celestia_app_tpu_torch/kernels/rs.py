@@ -158,6 +158,22 @@ def extend_square_fn(k: int, construction: str | None = None, device=None):
     return extend
 
 
+def extend_square(ods, device=None):
+    """Host convenience: a (k, k, S) uint8 ODS (numpy) -> its (2k, 2k, S)
+    EDS as numpy, extended on `device` (default CUDA; raises without a
+    card)."""
+    import numpy as np
+
+    from celestia_app_tpu_torch.device import upload
+
+    k = ods.shape[0]
+    if ods.shape[1] != k:
+        raise ValueError(f"ODS must be square, got {tuple(ods.shape)}")
+    dev = resolve_device(device)
+    x, _ = upload(np.ascontiguousarray(ods, dtype=np.uint8), dev)
+    return extend_square_fn(k, device=dev)(x).cpu().numpy()
+
+
 def decode_axis_fn(k: int, construction: str | None = None):
     """Erasure decode along an axis as a constant product.
 

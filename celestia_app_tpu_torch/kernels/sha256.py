@@ -146,3 +146,13 @@ def sha256_leaves(ns: torch.Tensor, shares: torch.Tensor) -> torch.Tensor:
     if n:
         _build.launch("sha256_leaf", "sha256", "sha256_leaves", ns, shares, n, out)
     return out
+
+
+def sha256_bytes(data: bytes, device=None) -> bytes:
+    """One message's digest through the batched path on `device` (default
+    CUDA; raises without a card): a host convenience for tests and tools,
+    not the hot path."""
+    from celestia_app_tpu_torch.device import resolve_device
+
+    msg = torch.tensor(np.frombuffer(bytes(data), dtype=np.uint8)).reshape(1, -1)
+    return bytes(sha256(msg.to(resolve_device(device))).cpu().numpy()[0])

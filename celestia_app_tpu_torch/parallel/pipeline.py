@@ -381,7 +381,7 @@ class BlockPipeline:
         submit()/drain() raise the stored error instead of hanging."""
         try:
             self._upload_loop()
-        except BaseException as e:
+        except BaseException as e:  # chaos-ok: worker death must be loud
             if self._error is None:
                 self._error = e
             self._force_sentinel(self._staged)
@@ -453,7 +453,7 @@ class BlockPipeline:
                 if attempt:
                     recoveries().inc(seam="device.upload", outcome="retried")
                 t1 = time.perf_counter()
-            except Exception as e:
+            except Exception as e:  # chaos-ok: stored, surfaced on the next drain
                 self._error = e
                 self._staged.put(_SENTINEL)
                 self._note_death("uploader", e)
@@ -476,7 +476,7 @@ class BlockPipeline:
     def _dispatch(self) -> None:
         try:
             self._dispatch_loop()
-        except BaseException as e:
+        except BaseException as e:  # chaos-ok: worker death must be loud
             if self._error is None:
                 self._error = e
             self._force_sentinel(self._done)
@@ -595,7 +595,7 @@ class BlockPipeline:
                     # with compute's for the same dispatch.
                     meta.update(_panel_fields(per_square[0][0], self.k, self.device))
                     _batch_size_histogram().observe(float(n), k=str(self.k))
-                except Exception as e:
+                except Exception as e:  # chaos-ok: stored, surfaced on the next drain
                     self._error = e
                     self._release_staged(sid, uploaded)
                     self._done.put(_SENTINEL)

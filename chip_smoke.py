@@ -120,7 +120,15 @@ Phases, in order; any failure raises and the script exits non-zero:
              data root, with wall, device busy and idle, peak memory and
              launches per shard, a share gather from its row-sharded EDS;
              rs_dense == plain on one owner's column contraction; the k=1024
-             FFT leg's root.
+             FFT leg's root;
+ 23. drills  the operator's drivers (celestia_app_tpu_torch/scripts/)
+             through their mains with --device cuda: the chaos soak (20
+             blocks at k=128, every drill ok, the sharded ones on 4 logical
+             shards, the soak's roots == the CPU plain kernels'), three DAS
+             load-generator legs (closed loop, swarm, a --serve child over
+             --url; the card's proofs == the host lowering's), the height
+             anatomy of 16 k=128 heights and a 4-validator devnet smoke
+             (the phase's docstring says what it checks).
 Then one JSON line per kernel table, the card's name and power limit, and
 last the result line {"ok": true, "device": {...}}.  Needs no network and no
 argument; exits non-zero without a CUDA device.
@@ -5557,6 +5565,281 @@ def phase_mesh(torch, card: str, giant: dict) -> dict:
     return records
 
 
+DRILL_SOAK_BLOCKS = 20
+DRILL_SOAK_K = 128
+DRILL_SHARDS = 4
+DRILL_LOADGEN_CLOSED = ["--heights", "4", "--k", "128", "--samples", "4000", "--threads", "8",
+                        "--verify", "64"]
+DRILL_LOADGEN_SWARM = ["--clients", "20000", "--tenants", "8", "--rate", "300", "--samples",
+                       "2400", "--k", "64", "--shard-sweep", "1"]
+DRILL_SERVE = ["--k", "128", "--heights", "2"]
+DRILL_URL_SAMPLES = 200
+DRILL_BYTES_K = 128
+DRILL_ANATOMY = ["--blocks", "16", "--k", "128"]
+DRILL_DEVNET = 4
+DRILL_DEVICE = "cuda"
+
+_CPU_ROOTS = r"""
+import json, sys
+import torch
+from celestia_app_tpu_torch.da.eds import ExtendedDataSquare
+from celestia_app_tpu_torch.scripts.common import deterministic_blocks
+
+torch.set_num_threads(int(sys.argv[3]))
+roots = {str(tag): ExtendedDataSquare.compute(ods, device="cpu").data_root().hex()
+         for tag, ods in deterministic_blocks(int(sys.argv[1]), int(sys.argv[2]))}
+print(json.dumps(roots))
+"""
+
+
+def run_driver(torch, _build, main, argv: list, log_path: str) -> tuple[int, str, float, dict]:
+    """(exit code, stdout, seconds, launches) of one driver's `main(argv)` in
+    this process, its stdout and stderr kept in `log_path`; the launch
+    counts are set to 0 just before and read just after."""
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = main(argv)
+    finally:
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        with open(log_path, "w") as f:
+            f.write(f"$ {argv}\n{out.getvalue()}\n--- stderr ---\n{err.getvalue()}")
+    return rc, out.getvalue(), seconds, launches
+
+
+def last_json(text: str) -> dict:
+    return json.loads([ln for ln in text.splitlines() if ln.startswith("{")][-1])
+
+
+def leg_line(summary: dict) -> str:
+    return (f"{summary['samples']} proofs in {summary['wall_s']} s, "
+            f"{summary['proofs_per_s']} proofs/s, p50 {summary['proof_p50_ms']} ms, "
+            f"p99 {summary['proof_p99_ms']} ms")
+
+
+def soak_cpu_roots(threads: int = 6) -> subprocess.Popen:
+    """Start the child that computes the clean data roots of chaos_soak's
+    soak blocks on the CPU's plain kernels (_CPU_ROOTS): ~7 s a k=128 block
+    there, so main starts it before the device-bound giant and mesh phases,
+    and phase_drills reads it at its end."""
+    return subprocess.Popen(
+        [sys.executable, "-c", _CPU_ROOTS, str(DRILL_SOAK_BLOCKS), str(DRILL_SOAK_K),
+         str(threads)], cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase_drills(torch, card: str, cpu: subprocess.Popen | None = None) -> dict:
+    """The operator's drivers (celestia_app_tpu_torch/scripts/) on the card,
+    each through its `main` as an operator runs it with `--device cuda`:
+      1. chaos_soak: a device soak of DRILL_SOAK_BLOCKS blocks at
+         k=DRILL_SOAK_K under the default spec, the other drills at the
+         script's k=8 cap, the two sharded drills over DRILL_SHARDS logical
+         shards of cuda:0 (--logical-shards); every drill ok, the sharded
+         ones on DRILL_SHARDS shards, the epi seat's breaker drill through
+         rs_dense_leaf; every chaos-on soak root == that block's root from a
+         clean ExtendedDataSquare.compute(ods, device="cpu") on the plain
+         kernels (soak_cpu_roots: a child process, started by main before
+         the giant phase, else here);
+      2. das_loadgen: a closed-loop leg, a swarm leg and one --serve child
+         sampled over --url, every verified proof verifying; the records go
+         to a temporary directory; proofs/s, p50 and p99 per leg; the card's
+         proof bytes for a fixed set of coordinates == the host lowering's
+         ($CELESTIA_SERVE_MODE=host);
+      3. block_anatomy: a streamed run of 16 heights at k=128, a record per
+         height;
+      4. devnet_smoke: DRILL_DEVNET validator processes on the card, one
+         killed, a Commit light-client-verified; each child's launches from
+         its log.
+    Per driver the wall time and the launches of its run in this process."""
+    import tempfile
+
+    from celestia_app_tpu_torch.kernels import _build
+    from celestia_app_tpu_torch.rpc.devnet import Devnet
+    from celestia_app_tpu_torch.scripts import (
+        block_anatomy,
+        chaos_soak,
+        das_loadgen,
+        devnet_smoke,
+    )
+
+    tmp = tempfile.mkdtemp(prefix="celestia-drills-")
+    root_dir = os.path.dirname(os.path.abspath(__file__))
+    per_driver = {}
+    cpu = cpu if cpu is not None else soak_cpu_roots()
+    serve = None
+    try:
+        # 1. The chaos soak.
+        summary_path = os.path.join(tmp, "soak.json")
+        with environment({"CELESTIA_FLIGHT_DIR": os.path.join(tmp, "flight")}):
+            rc, out, seconds, launches = run_driver(torch, _build, chaos_soak.main, [
+                "--device", DRILL_DEVICE, "--blocks", str(DRILL_SOAK_BLOCKS),
+                "--k", str(DRILL_SOAK_K), "--logical-shards", str(DRILL_SHARDS),
+                "--summary-out", summary_path, "--adv-out", os.path.join(tmp, "ADV_r01.json")],
+                os.path.join(tmp, "soak.log"))
+        if rc != 0:
+            with open(os.path.join(tmp, "soak.log")) as f:
+                raise AssertionError(f"chaos_soak exited {rc}:\n{f.read()[-6000:]}")
+        soak = json.load(open(summary_path))
+        drills = soak["drills"]
+        bad = [name for name, r in drills.items()
+               if not (r["roots_identical"] if name == "device_soak" else r["ok"])]
+        if bad:
+            raise AssertionError(f"chaos_soak drills not ok: {bad}")
+        shard, extend = drills["shard_fault"], drills["extend_shard"]
+        if shard["shards"] != DRILL_SHARDS or extend["eds_device_shards"] != DRILL_SHARDS:
+            raise AssertionError(f"sharded drills on {shard['shards']} / "
+                                 f"{extend['eds_device_shards']} shards, want {DRILL_SHARDS}")
+        check_launches("chaos_soak", launches, {name: None for name in
+                                                 ("sha256", "sha256_leaf", "rs_dense",
+                                                  "rs_dense_leaf")})
+        per_driver["chaos_soak"] = launches
+        log(f"[{card}] chaos_soak: {len(drills)} drills ok in {seconds:.1f} s (soak "
+            f"{DRILL_SOAK_BLOCKS} blocks at k={DRILL_SOAK_K}: final mode "
+            f"{drills['device_soak']['final_mode']}, degraded "
+            f"{drills['device_soak']['degraded']}; sharded drills on {DRILL_SHARDS} logical "
+            f"shards; sampling retried {drills['sampling']['retries']:.0f} on the card; heal "
+            f"{drills['healing']['heal'].get('total_ms')} ms; breaker detected in "
+            f"{drills['breaker']['detection_blocks']} block(s) / "
+            f"{drills['breaker']['detection_wall_ms']} ms), launches {launches}")
+        for line in out.splitlines():
+            if line.startswith(("device soak:", "sampling drill", "shard-fault drill",
+                                "extend-shard drill", "withholding drill", "healing drill",
+                                "quorum heal drill", "breaker drill")):
+                log(f"  {line}")
+
+        # 2. The DAS load generator.
+        legs = {}
+        for name, argv in (("closed", DRILL_LOADGEN_CLOSED), ("swarm", DRILL_LOADGEN_SWARM)):
+            record = os.path.join(tmp, f"DAS_{name}.json")
+            rc, out, seconds, launches = run_driver(
+                torch, _build, das_loadgen.main,
+                ["--device", DRILL_DEVICE, *argv, "--round-out", record],
+                os.path.join(tmp, f"loadgen-{name}.log"))
+            summary = last_json(out)
+            if rc != 0 or summary["failures"]:
+                raise AssertionError(f"das_loadgen {name} leg exited {rc}: {summary['failures']}")
+            legs[name] = summary
+            per_driver[f"das_loadgen {name}"] = launches
+            log(f"[{card}] das_loadgen {name} leg ({' '.join(argv)}): {leg_line(summary)}; "
+                f"{seconds:.1f} s with set-up, launches {launches}")
+        serve = subprocess.Popen(
+            [sys.executable, "-m", "celestia_app_tpu_torch.scripts.das_loadgen", "--serve",
+             "--device", DRILL_DEVICE, *DRILL_SERVE], cwd=root_dir, stdout=subprocess.PIPE,
+            stderr=open(os.path.join(tmp, "serve.log"), "w"), text=True)
+        t0 = time.perf_counter()
+        ready = json.loads(serve.stdout.readline() or "{}")
+        if "serving" not in ready:
+            raise AssertionError(f"--serve child gave no ready line:\n"
+                                 f"{open(os.path.join(tmp, 'serve.log')).read()[-3000:]}")
+        serve_s = time.perf_counter() - t0
+        rc, out, seconds, launches = run_driver(
+            torch, _build, das_loadgen.main,
+            ["--device", DRILL_DEVICE, "--url", ready["serving"], "--samples",
+             str(DRILL_URL_SAMPLES), "--verify", "16"], os.path.join(tmp, "loadgen-url.log"))
+        summary = last_json(out)
+        verified = len(range(0, DRILL_URL_SAMPLES, max(1, DRILL_URL_SAMPLES // 16)))
+        if rc != 0 or summary["failures"] or summary["verified"] != verified:
+            raise AssertionError(f"das_loadgen --url leg exited {rc}: {summary}")
+        legs["url"] = summary
+        per_driver["das_loadgen url"] = launches
+        log(f"[{card}] das_loadgen --serve child ({' '.join(DRILL_SERVE)}, on "
+            f"{DRILL_DEVICE}) ready in {serve_s:.1f} s; --url leg: {leg_line(summary)}, "
+            f"{verified} verified here, launches {launches}")
+
+        from celestia_app_tpu_torch.rpc.codec import to_jsonable
+        from celestia_app_tpu_torch.serve.api import render
+
+        cache, _ = das_loadgen.build_cache(1, DRILL_BYTES_K, 42, device=DRILL_DEVICE)
+        entry, _ = cache.get(1)
+        rng = np.random.default_rng(18)
+        n = 2 * DRILL_BYTES_K
+        coords = [(int(rng.integers(0, n)), int(rng.integers(0, n))) for _ in range(64)]
+        from celestia_app_tpu_torch.serve.sampler import ProofSampler
+
+        sampler = ProofSampler(device=DRILL_DEVICE)
+        got = {}
+        for mode in ("batched", "host"):
+            with environment({"CELESTIA_SERVE_MODE": mode}):
+                got[mode] = [[render(to_jsonable(p))
+                              for p in sampler.sample_batch(entry, coords, axis=axis)]
+                             for axis in ("row", "col")]
+        if got["batched"] != got["host"]:
+            raise AssertionError("the card's proofs differ from the host lowering's")
+        log(f"[{card}] das_loadgen's k={DRILL_BYTES_K} square: 64 coordinates per axis, the card's "
+            f"proof bytes == the host lowering's")
+
+        # 3. The height anatomy, on a timeline holding only its own heights
+        # (the drills above stamped rows of heights 1-3 into the process's).
+        from celestia_app_tpu_torch.trace import timeline
+
+        timeline._reset_for_tests()
+        rc, out, seconds, launches = run_driver(
+            torch, _build, block_anatomy.main,
+            ["--device", DRILL_DEVICE, *DRILL_ANATOMY,
+             "--round-out", os.path.join(tmp, "TL_r01.json")],
+            os.path.join(tmp, "anatomy.log"))
+        record = json.load(open(os.path.join(tmp, "TL_r01.json")))
+        if rc != 0 or record["blocks"] != 16 or record["platform"] != card:
+            raise AssertionError(f"block_anatomy exited {rc}: {record}")
+        check_launches("block_anatomy", launches, {"sha256": None, "sha256_leaf": None,
+                                                    "rs_dense": None})
+        per_driver["block_anatomy"] = launches
+        budget = sorted(record["phases"].items(), key=lambda kv: -kv[1]["share"])[:3]
+        log(f"[{card}] block_anatomy: 16 heights at k=128 in {seconds:.1f} s; largest "
+            f"phases " + ", ".join(f"{n} {d['mean_ms']} ms ({d['share'] * 100:.1f} %)"
+                                   for n, d in budget) + f"; launches {launches}")
+
+        # 4. The devnet smoke.
+        logs = os.path.join(tmp, "devnet")
+        rc, out, seconds, launches = run_driver(
+            torch, _build, devnet_smoke.main,
+            ["--device", DRILL_DEVICE, "--n", str(DRILL_DEVNET), "--log-dir", logs],
+            os.path.join(tmp, "devnet.log"))
+        if rc != 0 or "VERIFY OK" not in out:
+            raise AssertionError(f"devnet_smoke exited {rc}:\n{out[-3000:]}")
+        net = Devnet([], [], [os.path.join(logs, f"validator-{i}.log")
+                              for i in range(DRILL_DEVNET)])
+        children = [net.launches(i)[-1] if net.launches(i) else (0, {})
+                    for i in range(DRILL_DEVNET)]
+        for i, (height, counts) in enumerate(children[1:], start=1):
+            check_launches(f"devnet child {i}", counts, {"sha256": None, "sha256_leaf": None,
+                                                         "rs_dense": None})
+        per_driver["devnet_smoke (each live child, to its last height)"] = children[1:]
+        log(f"[{card}] devnet_smoke: {DRILL_DEVNET} validators, one killed, a Commit "
+            f"verified, in {seconds:.1f} s; "
+            + "; ".join(ln for ln in out.splitlines()
+                        if ln.startswith(("survived", "commit@", "post-kill")))
+            + f"; per child (height, launches so far): {children}")
+
+        # 5. The soak's roots against the plain kernels on the CPU.
+        t0 = time.perf_counter()
+        stdout, stderr = cpu.communicate(timeout=600)
+        if cpu.returncode != 0:
+            raise AssertionError(f"the CPU roots exited {cpu.returncode}:\n{stderr[-3000:]}")
+        want = json.loads(stdout.strip().splitlines()[-1])
+        if soak["soak_roots"] != want:
+            raise AssertionError("a chaos-on soak root differs from the CPU plain kernels'")
+        log(f"[{card}] the {DRILL_SOAK_BLOCKS} chaos-on soak roots at k={DRILL_SOAK_K} == "
+            f"clean ExtendedDataSquare.compute(device='cpu') on the plain kernels (waited "
+            f"{time.perf_counter() - t0:.1f} s for them at the end)")
+    finally:
+        for proc in (cpu, serve):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"per_driver": per_driver, "legs": {k: {key: v.get(key) for key in (
+        "samples", "wall_s", "proofs_per_s", "proof_p50_ms", "proof_p99_ms")}
+        for k, v in legs.items()}}
+
+
 def main() -> int:
     import torch
 
@@ -5635,10 +5918,18 @@ def main() -> int:
     phase_done("querier")
     bridge_counts = phase_bridge(torch, card)
     phase_done("bridge")
-    giant = phase_giant(torch, card)
-    phase_done("giant")
-    phase_mesh(torch, card, giant)
-    phase_done("mesh")
+    cpu_roots = soak_cpu_roots()
+    try:
+        giant = phase_giant(torch, card)
+        phase_done("giant")
+        phase_mesh(torch, card, giant)
+        phase_done("mesh")
+        drills = phase_drills(torch, card, cpu_roots)
+        phase_done("drills")
+    finally:
+        if cpu_roots.poll() is None:
+            cpu_roots.kill()
+            cpu_roots.wait(timeout=30)
     log(f"launches: per commitment batch {commit_counts}; per k={APP_K} Prepare "
         f"{app_counts['prepare']} and non-proposer Process {app_counts['process']}; per k={APP_K} "
         f"chain height's Prepare, Process, Finalize and Commit {chain_counts}; per k={APP_K} "
@@ -5647,7 +5938,7 @@ def main() -> int:
         f"query {query_counts}; in the bridge worker over its run {bridge_counts}; per DAS "
         f"payload and heal {serve_counts}; per gated GET, state-sync catch-up block and, per "
         f"child, devnet height {ops_counts}; per throughput block, gated GetShareProof and "
-        f"relayer proof {planes_counts}")
+        f"relayer proof {planes_counts}; per driver run {drills['per_driver']}")
 
     # Each kernel's launches on the k=512 path that runs it: the column
     # phase's kernel names the path, the hashing kernels run on every path.

@@ -6,10 +6,11 @@ the ABCI App and its block execution's keepers and IBC stack, the mempool,
 the in-process node and its clients, the round machine, the vote WAL, the
 chaos spec and the gossip-driven serving node, the protocol adversary, the
 DAS provider, the healing loop and the height timeline, the gRPC plane, the
-REST gateway, the daemon, the tools, the harnesses and the Blobstream
-relayer included) imported in a fresh
-interpreter leaves no `jax`,
-`celestia_app_tpu.*` or `cryptography` module in sys.modules, and no source
+REST gateway, the daemon, the tools, the harnesses, the Blobstream
+relayer and the operator's drivers under scripts/ included) imported in a
+fresh interpreter leaves no `jax`, `celestia_app_tpu.*` or `cryptography`
+module in sys.modules and no environment variable or sys.path entry
+changed, and no source
 of the port (nor chip_smoke.py) names one in an import statement, including
 imports inside functions.
 """
@@ -31,14 +32,17 @@ SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "celestia_app_tpu", "cryptography")
 
 _IMPORT_ALL = """
-import importlib, json, pkgutil, sys
+import importlib, json, os, pkgutil, sys
 import celestia_app_tpu_torch as port
+env, path = dict(os.environ), list(sys.path)
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "celestia_app_tpu", "cryptography"))
-print(json.dumps({"imported": names, "forbidden": bad}))
+env_changed = sorted(k for k in set(env) | set(os.environ) if env.get(k) != os.environ.get(k))
+print(json.dumps({"imported": names, "forbidden": bad, "env_changed": env_changed,
+                  "path_changed": path != sys.path}))
 """
 
 
@@ -72,9 +76,14 @@ def test_importing_every_port_module_loads_no_jax():
                  "trace.timeline", "rpc.grpc_plane", "rpc.api_gateway", "cmd.appd",
                  "cmd.config", "tools.blockscan", "tools.blocktime", "testutil.benchmark",
                  "testutil.malicious", "testutil.ibc", "crypto.keccak",
-                 "modules.blobstream.evm", "modules.blobstream.relayer"):
+                 "modules.blobstream.evm", "modules.blobstream.relayer",
+                 "scripts", "scripts.common", "scripts.chaos_soak", "scripts.das_loadgen",
+                 "scripts.block_anatomy", "scripts.devnet_smoke", "scripts.trace_lint"):
         assert f"celestia_app_tpu_torch.{name}" in result["imported"]
     assert result["forbidden"] == []
+    # Importing a module writes no environment variable and no sys.path
+    # entry (the JAX drivers under scripts/ do both at import).
+    assert result["env_changed"] == [] and not result["path_changed"]
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
