@@ -2,9 +2,11 @@
 generator onto a device, and a chain's state into an App.
 
 The block-square path has no trained state: its only constant is the RS
-generator, bit-expanded by gf/field.expand_bit_matrix (symbol-major rows and
-columns, bit t of byte b of a symbol LSB-first).  `codec_tensors` turns that
-(P*m, n*m) 0/1 matrix into the two forms the RS kernels read.
+generator (and repair's recover matrices), bit-expanded as
+gf/field.expand_bit_matrix does it (symbol-major rows and columns, bit t of
+byte b of a symbol LSB-first).  `expand_bits_tensor` builds that 0/1 matrix
+on the device in the dense kernel's padded layout; `pack_generator_words`
+packs the host expansion into the XOR kernel's words.
 
 The App's state is plain bytes: `app_from_export` starts a port App from the
 (key, value) pairs a committed store exports (the JAX package's
@@ -37,40 +39,33 @@ def pack_generator_words(G_bits: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(words.T).astype(np.uint32)  # (NW, Pm)
 
 
-def codec_tensors(
-    generator_bits: np.ndarray, m: int, device: str | torch.device
-) -> dict[str, torch.Tensor]:
-    """{"G_bits": int8 (P*m, n*m), "G_words": int32 (NW, P*m)} on `device`.
+def expand_bits_tensor(field, A: np.ndarray, device: str | torch.device) -> torch.Tensor:
+    """field.expand_bit_matrix(A) as int8 on `device`, built there from the
+    (n, k) GF matrix A: a view of a buffer whose rows are k*m rounded up to
+    16 bytes (zero-filled), the row stride the dense kernel's TMA loads
+    need (at k=1, k*m is 8), paid once when the matrix is cached.  No host
+    bit array (4.29 GB at k=4096, 256 strided numpy passes) is made.
 
-    G_bits is a view of a buffer whose rows are n*m rounded up to 16 bytes,
-    zero-filled past n*m: the dense kernel's TMA loads need a row stride
-    that is a multiple of 16 (at k=1, n*m is 8), and padding here, once per
-    codec, keeps the per-call path free of copies.
-
-    G_words holds the uint32 words of pack_generator_words bit for bit
-    (int32 because torch has no uint32 arithmetic on every device; the
-    kernels read the bits, never the sign).
-    """
-    G = np.asarray(generator_bits)
-    if G.ndim != 2 or G.shape[0] % m or G.shape[1] % m or m % 8:
-        raise ValueError(f"generator of shape {G.shape} is not bit-expanded for m={m}")
-    if G.size and G.max() > 1:
-        raise ValueError("generator_bits must hold only 0 and 1")
-    words = pack_generator_words(G.astype(np.uint8))
-    return {
-        "G_bits": bits_tensor(G, device),
-        "G_words": torch.from_numpy(words.view(np.int32)).to(device),
-    }
-
-
-def bits_tensor(bits: np.ndarray, device: str | torch.device) -> torch.Tensor:
-    """A (rows, cols) 0/1 matrix as int8 on `device`, a view of a buffer whose
-    rows are cols rounded up to 16 bytes (zero-filled): the row stride the
-    dense kernel's TMA loads need, paid once when the matrix is cached."""
-    rows, cols = bits.shape
-    padded = np.zeros((rows, -(-cols // 16) * 16), dtype=np.int8)
-    padded[:, :cols] = bits
-    return torch.from_numpy(padded).to(device)[:, :cols]
+    Column b of block (i, j) is bits(A[i, j] * x^b); the products by x^b
+    come from A by b shift-and-reduce steps (multiplication by x in the
+    field's polynomial basis), all on the device."""
+    A = np.asarray(A)
+    m = field.m
+    if A.ndim != 2:
+        raise ValueError(f"a GF matrix is 2-D, not of shape {A.shape}")
+    if A.size and (A.min() < 0 or A.max() >= 1 << m):
+        raise ValueError(f"entries of a GF(2^{m}) matrix lie in [0, {1 << m})")
+    n, k = A.shape
+    cols = k * m
+    buf = torch.zeros((n * m, -(-cols // 16) * 16), dtype=torch.int8, device=device)
+    out = buf[:, :cols]
+    blocks = out.view(n, m, k, m)  # [i, r, j, b]: bit r of A[i, j] * x^b
+    shifts = torch.arange(m, dtype=torch.int32, device=device)[None, :, None]
+    prod = torch.from_numpy(A.astype(np.int32)).to(device)
+    for b in range(m):
+        blocks[:, :, :, b] = ((prod[:, None, :] >> shifts) & 1).to(torch.int8)
+        prod = (prod << 1) ^ torch.where((prod >> (m - 1)) & 1 == 1, field.poly, 0)
+    return out
 
 
 def app_from_export(items, *, chain_id: str, app_version: int, height: int,

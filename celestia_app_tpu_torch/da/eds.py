@@ -54,6 +54,7 @@ from celestia_app_tpu_torch.kernels.rs import encode_core, extend_square_fn
 from celestia_app_tpu_torch.nmt.tree import NamespacedMerkleTree
 from celestia_app_tpu_torch.trace import journal
 from celestia_app_tpu_torch.trace.device_ledger import register_owner as _register_owner
+from celestia_app_tpu_torch.trace.device_ledger import releasable
 
 MODES = ("fused", "fused_epi", "staged", "host", "panel", "sharded_panel")
 
@@ -151,6 +152,10 @@ def _cached_pipeline(k: int, construction: str, config: tuple, mode: str,
             return inner(x)
     _BUILT[(k, construction, config, mode, device)] = weakref.ref(run)
     return run
+
+
+releasable(_cached_pipeline)
+releasable(_BUILT)
 
 
 def _is_built(k: int, construction: str, mode: str, dev: torch.device) -> bool:
@@ -260,6 +265,9 @@ def _cached_batched_pipeline(k: int, construction: str, core: tuple, mode: str, 
     return track(_batched_pipeline_for_mode(mode, k, batch, construction, device), family,
                  k=k, construction=construction, mode="host" if mode == "host" else "fused",
                  batch=batch)
+
+
+releasable(_cached_batched_pipeline)
 
 
 def batched_pipeline_for_mode(mode: str, k: int, batch: int, construction: str | None = None,

@@ -52,13 +52,14 @@ import numpy as np
 import torch
 
 from celestia_app_tpu_torch.constants import SHARE_SIZE
-from celestia_app_tpu_torch.convert import bits_tensor
+from celestia_app_tpu_torch.convert import expand_bits_tensor
 from celestia_app_tpu_torch.da.dah import DataAvailabilityHeader
 from celestia_app_tpu_torch.da.eds import ExtendedDataSquare, _resolver
 from celestia_app_tpu_torch.device import resolve_device, upload
 from celestia_app_tpu_torch.gf.rs import active_construction, codec_for_width
 from celestia_app_tpu_torch.kernels.rs import encode_axis
 from celestia_app_tpu_torch.trace.device_ledger import register_owner as _register_owner
+from celestia_app_tpu_torch.trace.device_ledger import releasable
 
 
 class IrrecoverableSquare(ValueError):
@@ -121,9 +122,12 @@ def _recover_bits_device(k: int, pattern: bytes, construction: str, device: torc
     codec = codec_for_width(k, construction)
     known_pos = np.nonzero(np.frombuffer(pattern, dtype=bool))[0][:k]
     R = codec.recover_matrix(known_pos)
-    R_bits = bits_tensor(codec.field.expand_bit_matrix(R), device)
+    R_bits = expand_bits_tensor(codec.field, R, device)
     _RECOVER_CACHE_TENSORS[("full", k, pattern, construction, device)] = R_bits
     return R_bits, torch.from_numpy(known_pos.astype(np.int64)).to(device)
+
+
+releasable(_recover_bits_device)
 
 
 @lru_cache(maxsize=128)
@@ -137,9 +141,12 @@ def _recover_bits_missing(k: int, pattern: bytes, construction: str, device: tor
     known_pos = np.nonzero(mask)[0][:k]
     miss_pos = np.nonzero(~mask)[0]
     R = codec.recover_matrix(known_pos)
-    R_miss = bits_tensor(codec.field.expand_bit_matrix(R[miss_pos]), device)
+    R_miss = expand_bits_tensor(codec.field, R[miss_pos], device)
     _RECOVER_CACHE_TENSORS[("missing", k, pattern, construction, device)] = R_miss
     return R_miss, known_pos.astype(np.int64), miss_pos.astype(np.int64)
+
+
+releasable(_recover_bits_missing)
 
 
 @lru_cache(maxsize=64)
@@ -171,6 +178,9 @@ def _stacked_sweep_inputs(k: int, construction: str, axis: int, patterns: tuple[
         views.append(flat[off:off + len(g)])
         off += len(g)
     return tuple(views), tuple(shapes), flat[off:]
+
+
+releasable(_stacked_sweep_inputs)
 
 
 def _batched_sweep(data: torch.Tensor, k: int, axis: int, construction: str,
@@ -241,6 +251,9 @@ def _sweep_program(kind: str, k: int, construction: str):
         return track(_batched_sweep, "repair_batched_sweep", k=k, construction=construction,
                      mode="batched")
     return track(_grouped_sweep, "repair_sweep", k=k, construction=construction, mode="staged")
+
+
+releasable(_sweep_program)
 
 
 def _mark(present_host: np.ndarray, axis: int, lines) -> None:

@@ -34,6 +34,7 @@ from celestia_app_tpu_torch.gf.fft import encode_params, stage_twiddles
 from celestia_app_tpu_torch.gf.rs import codec_for_width
 from celestia_app_tpu_torch.kernels.rs import _encode_with
 from celestia_app_tpu_torch.kernels.rs_dense import _pack_bits, _unpack_bits
+from celestia_app_tpu_torch.trace.device_ledger import releasable
 
 
 def _group_matrices(
@@ -113,6 +114,9 @@ def _device_groups(k: int, construction: str, device: torch.device) -> tuple:
     dtype = bits_dtype(device)
     return tuple((j0, j1, torch.from_numpy(M).to(device=device, dtype=dtype))
                  for j0, j1, M in encode_groups(k, construction))
+
+
+releasable(_device_groups)
 
 
 def _apply_groups(bits: torch.Tensor, groups: tuple, m: int,

@@ -16,11 +16,12 @@ card whole and the column phase's intermediates are one panel's:
     (p, 2k, 32) digest slabs accumulate.
   * COLUMN PHASE — mod 2 of a sum is the XOR of the per-panel mod-2
     partial sums, so panel rows [r0, r1) contribute
-    G_bits[:, r0*m : r1*m] @ panel, computed by the dense encode_axis
-    (rs_dense) and XOR-added in place into a (k, 2k, 512) parity
-    accumulator as each panel completes.  This stays dense under
-    $CELESTIA_RS_XOR=on, as in the JAX package: the XOR core's packed
-    generator words do not slice at arbitrary panel rows.  Where the encode
+    G_bits[:, r0*m : r1*m] @ panel, computed by the dense core (rs_dense)
+    and XOR-added in place into a (k, 2k, 512) parity accumulator as each
+    panel completes (kernels/rs.xor_encode_into: the kernel's parity
+    planes go straight into the accumulator's byte layout).  This stays
+    dense under $CELESTIA_RS_XOR=on, as in the JAX package: the XOR core's
+    packed generator words do not slice at arbitrary panel rows.  Where the encode
     seam selects the additive FFT (kernels/rs._fft_choice), the butterflies
     contract over the row axis and cannot XOR-split, so the top half stays
     resident and the bottom is encoded in blocks of columns instead
@@ -32,8 +33,12 @@ card whole and the column phase's intermediates are one panel's:
 
 Memory: the accumulator is half the EDS (or, with `roots_only=False`, the
 bottom half of the EDS the runner fills in place), plus one panel and one
-partial product with its layout copies, plus 61 B per leaf of digest
-grids.  The `roots_only` twin never assembles the EDS.
+partial product (as large as the accumulator: k*m bits of parity per
+column), plus 61 B per leaf of digest grids, plus the resident generator
+whose column slices the partials read as views.  The `roots_only` twin
+never assembles the EDS.  At k=4096 that is 17.2 GB of accumulator, 17.2
+GB of partial, 4.3 GB of generator and 6 GB of digests and tree levels,
+and the materializing twin adds the 17.2 GB top half.
 
 Selection seam: $CELESTIA_PIPE_PANEL = "<rows>" | "auto" (default off).
 An integer streams every square in panels of that many ODS rows; "auto"
@@ -60,13 +65,19 @@ import numpy as np
 import torch
 
 from celestia_app_tpu_torch.constants import NAMESPACE_SIZE, SHARE_SIZE
-from celestia_app_tpu_torch.convert import bits_tensor
 from celestia_app_tpu_torch.device import resolve_device, upload
 from celestia_app_tpu_torch.gf.rs import active_construction, codec_for_width
 from celestia_app_tpu_torch.kernels.fft import col_block_encode_fn
 from celestia_app_tpu_torch.kernels.fused import roots_from_digests
 from celestia_app_tpu_torch.kernels.nmt import leaf_digests, parity_namespaces
-from celestia_app_tpu_torch.kernels.rs import encode_axis, encode_core, encode_fn
+from celestia_app_tpu_torch.kernels.rs import (
+    encode_core,
+    encode_fn,
+    generator_tensor,
+    xor_encode_into,
+)
+from celestia_app_tpu_torch.kernels.rs_dense import tma_rows
+from celestia_app_tpu_torch.trace.device_ledger import releasable
 
 #: "auto" panel height (ODS rows per panel) and the square size at which
 #: auto engages: below it the materializing pipeline holds the square
@@ -135,18 +146,24 @@ def _col_generator_slices(k: int, construction: str, bounds: tuple,
                           device: torch.device) -> tuple:
     """Per-panel block-columns of the bit-expanded generator, on `device`:
     the column partial of panel rows [r0, r1) reads exactly
-    G_bits[:, r0*m : r1*m].  Each is its own buffer with a 16-byte row
-    stride and base (convert.bits_tensor), which a view into the whole
-    generator lacks at m=8 for an odd r0 (TMA's alignment rule)."""
+    G_bits[:, r0*m : r1*m].  Each is a view into the resident generator
+    (kernels/rs.generator_tensor) where that view meets TMA's rule (a
+    16-byte aligned base: always at m=16), else its own 16-byte-strided
+    copy (rs_dense.tma_rows), as at m=8 for an odd r0.  Only the copies
+    are counted as owned bytes: at k=4096 the views spare the card another
+    4.29 GB."""
     from celestia_app_tpu_torch.trace.device_ledger import note_owned_bytes
 
-    codec = codec_for_width(k, construction)
-    g_bits = codec.generator_bits()
-    m = codec.field.m
-    slices = tuple(bits_tensor(g_bits[:, r0 * m: r1 * m], device) for r0, r1 in bounds)
+    m, g_bits = generator_tensor(k, construction, device)
+    slices = tuple(tma_rows(g_bits[:, r0 * m: r1 * m]) for r0, r1 in bounds)
+    base = g_bits.untyped_storage().data_ptr()
     note_owned_bytes("panel_generator_slices", (k, construction, bounds, str(device)),
-                     sum(int(s.numel()) * s.element_size() for s in slices))
+                     sum(int(s.untyped_storage().nbytes()) for s in slices
+                         if s.untyped_storage().data_ptr() != base))
     return slices
+
+
+releasable(_col_generator_slices, "panel_generator_slices")
 
 
 def _as_panels(x, k: int, bounds: tuple) -> list:
@@ -203,7 +220,7 @@ def panel_pipeline(k: int, construction: str | None = None, roots_only: bool = F
 #: Resolved configurations (k, construction, rows, core, device) whose
 #: runner completed one full run this process — the journal's compile
 #: hit/miss signal for panel mode (da/eds.pipeline_cache_state).
-_PANEL_WARM: set[tuple] = set()
+_PANEL_WARM: set[tuple] = releasable(set())
 
 
 def is_warm(k: int, construction: str | None = None, device=None) -> bool:
@@ -266,7 +283,7 @@ def _panel_runner(k: int, construction: str, roots_only: bool, rows: int, core: 
             ns_slabs.append(ns)
             top_hashes.append(leaf_digests(ns, ext)[2])
             if not use_fft:
-                acc.bitwise_xor_(encode_axis(ext, g_slices[i], m, contract_axis=0))
+                xor_encode_into(acc, ext, g_slices[i], m)
             del panel, ext
         bot_hashes = []
         if use_fft:
@@ -291,3 +308,6 @@ def _panel_runner(k: int, construction: str, roots_only: bool, rows: int, core: 
         return roots if roots_only else (eds, *roots)
 
     return _track(run, k, construction, rows)
+
+
+releasable(_panel_runner)

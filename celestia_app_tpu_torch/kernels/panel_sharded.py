@@ -53,11 +53,9 @@ import os
 import sys
 from functools import lru_cache
 
-import numpy as np
 import torch
 
 from celestia_app_tpu_torch.constants import NAMESPACE_SIZE, SHARE_SIZE
-from celestia_app_tpu_torch.convert import bits_tensor
 from celestia_app_tpu_torch.device import resolve_device
 from celestia_app_tpu_torch.gf.rs import active_construction, codec_for_width
 from celestia_app_tpu_torch.kernels.fft import col_block_encode_fn
@@ -70,7 +68,13 @@ from celestia_app_tpu_torch.kernels.nmt import (
     tree_roots_from_digests,
 )
 from celestia_app_tpu_torch.kernels.panel import _to_device, panel_bounds, panel_rows
-from celestia_app_tpu_torch.kernels.rs import encode_axis, encode_core, encode_fn
+from celestia_app_tpu_torch.kernels.rs import (
+    encode_core,
+    encode_fn,
+    generator_tensor,
+    xor_encode_into,
+)
+from celestia_app_tpu_torch.kernels.rs_dense import tma_rows
 from celestia_app_tpu_torch.parallel.mesh import (
     EXTEND_AXIS,
     Mesh,
@@ -82,6 +86,7 @@ from celestia_app_tpu_torch.parallel.mesh import (
     send,
 )
 from celestia_app_tpu_torch.parallel.sharded_eds import join_nodes, split_nodes
+from celestia_app_tpu_torch.trace.device_ledger import releasable
 
 
 def _pow2_floor(n: int) -> int:
@@ -173,34 +178,38 @@ def _owner_generator_slices(k: int, construction: str, devices: tuple, bounds: t
     cols] on b's device, where cols are the generator columns of the step's
     rows on every shard in shard order, [(i*slab + r0)*m, (i*slab + r1)*m)
     for i = 0..n-1: the operand that contracts the all_gathered panels into
-    b's parity rows.  Each its own 16-byte-strided buffer (bits_tensor,
-    TMA's rule).  Across steps and owners they are the generator's bytes
-    once."""
+    b's parity rows.  Gathered on b's device from its resident generator
+    (kernels/rs.generator_tensor), each its own 16-byte-strided buffer
+    (rs_dense.tma_rows, TMA's rule).  Across steps and owners they are the
+    generator's bytes once."""
     from celestia_app_tpu_torch.trace.device_ledger import note_owned_bytes
 
-    codec = codec_for_width(k, construction)
-    g_bits = codec.generator_bits()
-    m = codec.field.m
     n = len(devices)
     slab = k // n
     out = []
     for r0, r1 in bounds:
-        cols = np.concatenate([np.arange((i * slab + r0) * m, (i * slab + r1) * m)
-                               for i in range(n)])
-        out.append(tuple(
-            bits_tensor(g_bits[b * slab * m:(b + 1) * slab * m][:, cols], devices[b])
-            for b in range(n)))
+        step = []
+        for b in range(n):
+            m, g_bits = generator_tensor(k, construction, devices[b])
+            cols = torch.cat([torch.arange((i * slab + r0) * m, (i * slab + r1) * m,
+                                           device=devices[b]) for i in range(n)])
+            step.append(tma_rows(torch.index_select(
+                g_bits[b * slab * m:(b + 1) * slab * m], 1, cols)))
+        out.append(tuple(step))
     note_owned_bytes("sharded_generator_slices", (k, construction, tuple(map(str, devices)),
                                                   bounds),
-                     sum(int(t.numel()) * t.element_size() for step in out for t in step))
+                     sum(int(t.untyped_storage().nbytes()) for step in out for t in step))
     return tuple(out)
+
+
+releasable(_owner_generator_slices, "sharded_generator_slices")
 
 
 #: Resolved configurations (k, construction, mesh, rows, core) whose runner
 #: completed one full run this process — the compile column of the sharded
 #: rung (da/eds.pipeline_cache_state), keyed like kernels/panel._PANEL_WARM
 #: plus the mesh.
-_SHARDED_WARM: set[tuple] = set()
+_SHARDED_WARM: set[tuple] = releasable(set())
 
 
 def is_sharded_warm(k: int, construction: str | None = None, device=None) -> bool:
@@ -326,8 +335,7 @@ def _sharded_runner(k: int, construction: str, roots_only: bool, mesh: Mesh, row
                 for b in range(n):
                     panels = gather(mesh, exts, dim=0, dst=b)
                     with mesh.on(b):
-                        bottoms[b].bitwise_xor_(encode_axis(panels, g_steps[j][b], m,
-                                                            contract_axis=0))
+                        xor_encode_into(bottoms[b], panels, g_steps[j][b], m)
                     del panels
             del exts
         if use_fft:
@@ -386,3 +394,6 @@ def _sharded_runner(k: int, construction: str, roots_only: bool, mesh: Mesh, row
     note_jit_build("sharded_panel_pipeline")
     return track(run, "sharded_panel_pipeline", k=k, construction=construction,
                  mode="sharded_panel", batch=rows, shards=n)
+
+
+releasable(_sharded_runner)

@@ -21,13 +21,15 @@ import math
 import os
 from functools import lru_cache
 
+import numpy as np
 import torch
 
-from celestia_app_tpu_torch.convert import codec_tensors
+from celestia_app_tpu_torch.convert import expand_bits_tensor, pack_generator_words
 from celestia_app_tpu_torch.device import resolve_device
 from celestia_app_tpu_torch.gf.rs import active_construction, codec_for_width
 from celestia_app_tpu_torch.kernels.rs_dense import mod2_matmul_planes
 from celestia_app_tpu_torch.kernels.rs_xor import mod2_matmul_planes_xor
+from celestia_app_tpu_torch.trace.device_ledger import releasable
 
 
 def use_xor() -> bool:
@@ -90,25 +92,85 @@ def encode_axis(data: torch.Tensor, G_bits: torch.Tensor, m: int,
     return _encode_with(mod2_matmul_planes, data, G_bits, m, contract_axis)
 
 
+def xor_encode_into(acc: torch.Tensor, data: torch.Tensor, G_bits: torch.Tensor,
+                    m: int) -> None:
+    """acc ^= encode_axis(data, G_bits, m, contract_axis=0), in place.
+
+    The kernel's parity planes XOR straight into a strided view of `acc`
+    (contiguous, (P, ..., S)) instead of being regrouped into the byte
+    layout first: a panel's column partial at k=4096 is 17.2 GB, and the
+    regrouped copy would be another 17.2 GB on the card."""
+    bps = m // 8
+    n, lines, S = data.shape[0], data.shape[1:-1], data.shape[-1]
+    batch, nsym = math.prod(lines), S // bps
+    planes = data.reshape(n, batch, nsym, bps).movedim(3, 1).reshape(n, bps, batch * nsym)
+    out = mod2_matmul_planes(G_bits, planes, m)  # (P, bps, batch * nsym)
+    P = out.shape[0]
+    if tuple(acc.shape) != (P, *lines, S):
+        raise ValueError(f"accumulator {tuple(acc.shape)} != parity ({P}, *{tuple(lines)}, {S})")
+    acc.view(P, batch, nsym, bps).movedim(3, 1).bitwise_xor_(out.view(P, bps, batch, nsym))
+
+
 def encode_axis_xor(data: torch.Tensor, G_words: torch.Tensor, m: int,
                     contract_axis: int = 1) -> torch.Tensor:
     """encode_axis with the bitsliced XOR core (same byte moves)."""
     return _encode_with(mod2_matmul_planes_xor, data, G_words, m, contract_axis)
 
 
+def _device_key(device) -> torch.device:
+    """`device` with its CUDA index filled in: "cuda" and "cuda:0" name one
+    card, and must find one cache entry (a second copy of k=4096's
+    generator is another 4.3 GB)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def generator_tensor(k: int, construction: str, device):
+    """(m, G_bits) of one codec on `device`, resident for the process: the
+    int8 (k*m, k*m) bit-expanded generator the dense kernel reads, at a
+    16-byte row stride, bit-expanded there from the (k, k) generator
+    (convert.expand_bits_tensor; no host copy of the bits).  The device
+    ledger's owner `codec_tensors` (the JAX package bakes its generators
+    into each compiled program instead)."""
+    return _generator_tensor(k, construction, _device_key(device))
+
+
 @lru_cache(maxsize=None)
-def _codec_tensors(k: int, construction: str, device: torch.device):
-    """(m, {"G_bits", "G_words"}) of one codec on `device`, resident for
-    the process: the device ledger's owner `codec_tensors` (the JAX package
-    bakes its generators into each compiled program instead)."""
+def _generator_tensor(k: int, construction: str, device: torch.device):
     from celestia_app_tpu_torch.trace.device_ledger import note_owned_bytes
 
     codec = codec_for_width(k, construction)
-    m = codec.field.m
-    tensors = codec_tensors(codec.generator_bits(), m, device)
-    note_owned_bytes("codec_tensors", (k, construction, str(device)),
-                     sum(int(t.untyped_storage().nbytes()) for t in tensors.values()))
-    return m, tensors
+    G_bits = expand_bits_tensor(codec.field, codec.generator, device)
+    note_owned_bytes("codec_tensors", (k, construction, str(device), "G_bits"),
+                     int(G_bits.untyped_storage().nbytes()))
+    return codec.field.m, G_bits
+
+
+releasable(_generator_tensor, "codec_tensors")
+
+
+def generator_words(k: int, construction: str, device):
+    """(m, G_words) of one codec on `device`: the XOR core's packed
+    generator (convert.pack_generator_words of the host bit expansion, as
+    int32), built the first time that core runs at this size."""
+    return _generator_words(k, construction, _device_key(device))
+
+
+@lru_cache(maxsize=None)
+def _generator_words(k: int, construction: str, device: torch.device):
+    from celestia_app_tpu_torch.trace.device_ledger import note_owned_bytes
+
+    codec = codec_for_width(k, construction)
+    words = pack_generator_words(codec.generator_bits())
+    G_words = torch.from_numpy(words.view(np.int32)).to(device)
+    note_owned_bytes("codec_tensors", (k, construction, str(device), "G_words"),
+                     int(G_words.untyped_storage().nbytes()))
+    return codec.field.m, G_words
+
+
+releasable(_generator_words, "codec_tensors")
 
 
 def encode_fn(k: int, construction: str | None = None, device=None):
@@ -128,14 +190,13 @@ def encode_fn(k: int, construction: str | None = None, device=None):
             return encode_axis_fft(data, k, construction, contract_axis, md=md)
 
         return encode
-    m, tensors = _codec_tensors(k, construction, dev)
     if core[0] == "xor":
-        G_words = tensors["G_words"]
+        m, G_words = generator_words(k, construction, dev)
 
         def encode(data: torch.Tensor, contract_axis: int = 1) -> torch.Tensor:
             return encode_axis_xor(data, G_words, m, contract_axis)
     else:
-        G_bits = tensors["G_bits"]
+        m, G_bits = generator_tensor(k, construction, dev)
 
         def encode(data: torch.Tensor, contract_axis: int = 1) -> torch.Tensor:
             return encode_axis(data, G_bits, m, contract_axis)
@@ -180,7 +241,7 @@ def decode_axis_fn(k: int, construction: str | None = None):
     Returns f(known, R_bits): known (R, k, S) holds each line's k known
     shares (already gathered), R_bits is a bit-expanded recover matrix
     (rows*m, k*m) from RSCodec.recover_matrix on the same device, carried
-    there by convert.bits_tensor; the result is (R, rows, S).  With the
+    there by convert.expand_bits_tensor; the result is (R, rows, S).  With the
     full (2k*m, k*m) matrix it is the whole codeword."""
     m = codec_for_width(k, construction).field.m
 

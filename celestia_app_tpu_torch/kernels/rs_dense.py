@@ -7,8 +7,8 @@ version: unpack to bits, int32 matmul, `& 1`, repack LSB-first.
 
 The kernel reads and writes through TMA, which needs each row stride to be
 a multiple of 16 bytes and each base 16-byte aligned.  `tma_rows` gives a
-tensor that already is so back unchanged (the main path: codec_tensors pads
-the generator's rows once, and its column counts are multiples of 256) and
+tensor that already is so back unchanged (the main path:
+convert.expand_bits_tensor pads the generator's rows once, and its column counts are multiples of 256) and
 copies any other into a zero-padded row stride at an aligned base.
 """
 

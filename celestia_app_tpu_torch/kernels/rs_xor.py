@@ -188,12 +188,11 @@ def bottom_leaf_fn(k: int, construction: str | None = None, *, fallback_encode,
     the epilogue must not fork the RS seat there), then the leaf digests
     under the parity namespace.  Both give the same bytes."""
     from celestia_app_tpu_torch.gf.rs import active_construction
-    from celestia_app_tpu_torch.kernels.rs import _codec_tensors  # rs imports this module
+    from celestia_app_tpu_torch.kernels.rs import generator_tensor  # rs imports this module
 
     dev = resolve_device(device)
     if dev.type == "cuda":
-        m, tensors = _codec_tensors(k, construction or active_construction(), dev)
-        G_bits = tensors["G_bits"]
+        m, G_bits = generator_tensor(k, construction or active_construction(), dev)
 
         def fn(top: torch.Tensor):
             return extend_leaf_digests(top, G_bits, m)

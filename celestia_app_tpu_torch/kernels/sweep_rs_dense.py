@@ -30,9 +30,8 @@ import sys
 import numpy as np
 import torch
 
-from celestia_app_tpu_torch.convert import codec_tensors
-from celestia_app_tpu_torch.gf.rs import codec_for_width
 from celestia_app_tpu_torch.kernels import _build, rs_dense, rs_xor
+from celestia_app_tpu_torch.kernels.rs import generator_tensor
 
 INT8_OPS_PER_S = 1.979e15  # H100 SXM dense int8 peak (data sheet, 700 W)
 
@@ -134,9 +133,7 @@ def _launcher(name: str, fn, *args):
 
 def sweep_dense(libs, card: str, dev, rng) -> None:
     for k, axis, shape in ((512, 1, (512, 512, 512)), (128, 0, (128, 256, 512))):
-        codec = codec_for_width(k, "vandermonde")
-        m = codec.field.m
-        G = codec_tensors(codec.generator_bits(), m, dev)["G_bits"]
+        m, G = generator_tensor(k, "vandermonde", dev)
         Pm, nm = G.shape
         data = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
         x = data.movedim(axis, 0)
@@ -162,10 +159,8 @@ def sweep_dense(libs, card: str, dev, rng) -> None:
 
 def sweep_leaf(libs, card: str, dev, rng) -> None:
     for k in (512, 128):
-        codec = codec_for_width(k, "vandermonde")
-        m = codec.field.m
+        m, G_bits = generator_tensor(k, "vandermonde", dev)
         bps = m // 8
-        G_bits = codec_tensors(codec.generator_bits(), m, dev)["G_bits"]
         Pm, nm = G_bits.shape
         n2 = 2 * k
         top = torch.from_numpy(rng.integers(0, 256, (k, n2, 512), dtype=np.uint8)).to(dev)

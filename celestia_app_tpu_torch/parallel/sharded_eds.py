@@ -52,6 +52,7 @@ from celestia_app_tpu_torch.parallel.mesh import (
     place_rows,
 )
 from celestia_app_tpu_torch.trace import journal
+from celestia_app_tpu_torch.trace.device_ledger import releasable
 
 
 def split_nodes(nodes: torch.Tensor):
@@ -148,6 +149,9 @@ def default_mesh(n: int | None = None, axis: str = "data", device=None) -> Mesh:
 @lru_cache(maxsize=None)
 def _cached_pipeline(k: int, mesh: Mesh, construction: str, core: tuple, roots_only: bool):
     return _pipeline(k, mesh, construction, roots_only)
+
+
+releasable(_cached_pipeline)
 
 
 def cached_pipeline(k: int, mesh: Mesh, construction: str | None = None,

@@ -35,7 +35,10 @@ against the measured high-water: on the card the caching allocator's peak,
 RSS (source "rss_high_water").  The slack nobody claims is the
 unattributed residual; a residual that GROWS for
 `$CELESTIA_DEVICE_LEAK_TICKS` consecutive reconciliations is the leak
-signature and fires the `device_residual_growth` flight trigger.
+signature and fires the `device_residual_growth` flight trigger.  Each
+cache of device state registers itself where it is defined with
+`releasable(cache, owner)`, and `release_device_caches()` drops them all
+with their owned bytes.
 
 Exposition:
 
@@ -72,6 +75,8 @@ __all__ = [
     "unregister_owner",
     "note_owned_bytes",
     "forget_owned_bytes",
+    "releasable",
+    "release_device_caches",
     "note_warmup",
     "reconcile",
     "snapshot",
@@ -79,6 +84,11 @@ __all__ = [
     "device_response",
     "_reset_for_tests",
 ]
+
+#: The caches of device state release_device_caches drops, in the order
+#: they registered: (clear, owner), `owner` the note_owned_bytes owner whose
+#: figures go with the cache (None where a callback owner reads it live).
+_RELEASABLE: list[tuple] = []
 
 #: The ledger's clock: first-call and dispatch seconds are differences of
 #: it.  A module attribute, so tests can replace it with a stepped clock.
@@ -298,6 +308,45 @@ def forget_owned_bytes(owner: str, key=None) -> None:
             _OWNED_KEYED.pop(str(owner), None)
         else:
             _OWNED_KEYED.get(str(owner), {}).pop(key, None)
+
+
+def releasable(cache, owner: str | None = None):
+    """Register `cache` (an lru_cache'd build function, or a set or dict
+    of what was built) with release_device_caches, and `owner`'s owned
+    bytes with it; returns `cache`.  Called where the cache is defined, so
+    a new cache is released by the line that makes it."""
+    clear = getattr(cache, "cache_clear", None) or cache.clear
+    with _LOCK:
+        _RELEASABLE.append((clear, None if owner is None else str(owner)))
+    return cache
+
+
+def release_device_caches() -> None:
+    """Drop every registered cache of device state (the pipelines of every
+    rung, the panel and sharded-panel runners and their generator slices,
+    the codecs' bit-expanded generators, the FFT's group matrices, the
+    repair sweeps' recover matrices: each module's `releasable` lines),
+    forget their owned bytes and return the freed blocks to CUDA
+    (empty_cache).  Memory still referenced elsewhere stays.  The next call
+    of each path builds what it needs again (`compile="miss"` in the
+    journal).
+
+    A giant square after smaller ones needs this: the generator of k=2048
+    and its panel slices pin 2.1 GB, and k=4096's generator alone is 4.3 GB
+    of the 80 GB card its 17.2 GB accumulator and 17.2 GB partial share."""
+    import gc
+
+    with _LOCK:
+        entries = list(_RELEASABLE)
+    for clear, owner in entries:
+        clear()
+        if owner is not None:
+            forget_owned_bytes(owner)
+    gc.collect()
+    import torch
+
+    if torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
 
 
 def note_warmup(k: int, construction: str, mode: str) -> None:

@@ -102,9 +102,9 @@ Phases, in order; any failure raises and the script exits non-zero:
              that outlasts the ladder (each phase's docstring says what it
              checks);
  21. giant   k=1024 and k=2048 (GF(2^16)): the materializing fused and epi
-             lowerings, XOR at k=1024, and the panel-streamed one
-             ($CELESTIA_PIPE_PANEL: 64-row panels, 48-row panels at k=1024,
-             the FFT column leg):
+             lowerings, and at k=1024 XOR and the panel-streamed one
+             ($CELESTIA_PIPE_PANEL: 64-row and 48-row panels, the FFT
+             column leg):
              one data root and one EDS per k, the roots-only twins, 64
              parity shares per k == the host additive FFT, launches per
              lowering as counted from the code, wall and device time and
@@ -128,7 +128,19 @@ Phases, in order; any failure raises and the script exits non-zero:
              load-generator legs (closed loop, swarm, a --serve child over
              --url; the card's proofs == the host lowering's), the height
              anatomy of 16 k=128 heights and a 4-validator devnet smoke
-             (the phase's docstring says what it checks).
+             (the phase's docstring says what it checks);
+ 24. leopard the leopard-parity tool (scripts/verify_leopard_parity) through
+             its main with --device cuda: --selftest, and a k=128 leopard
+             block's evidence written by --device cpu, the card's verdict
+             line == the CPU's;
+ 25. ceiling k=4096, the codec ceiling, on a card freed of every cached
+             pipeline and generator: the roots-only panel lowering and the
+             sharded panel one over 4 logical shards agree on every root,
+             four roots == their host recomputation, the materializing
+             ExtendedDataSquare.compute (the 34.4 GB EDS) gives the same
+             roots and 64 parity shares == the host FFT; launches per square
+             (per shard), the rung that ran, walls and peak memory above the
+             resident (the phase's docstring says what it checks).
 Then one JSON line per kernel table, the card's name and power limit, and
 last the result line {"ok": true, "device": {...}}.  Needs no network and no
 argument; exits non-zero without a CUDA device.
@@ -315,10 +327,8 @@ class Table:
 
 
 def phase_kernels(torch, table: Table, card: str) -> None:
-    from celestia_app_tpu_torch.gf.rs import codec_for_width
-    from celestia_app_tpu_torch.convert import codec_tensors
     from celestia_app_tpu_torch.kernels import rs_dense, rs_xor, sha256 as sha
-    from celestia_app_tpu_torch.kernels.rs import _encode_with
+    from celestia_app_tpu_torch.kernels.rs import _encode_with, generator_tensor, generator_words
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(2024)
@@ -383,10 +393,8 @@ def phase_kernels(torch, table: Table, card: str) -> None:
     # beside torch._int_mm on the unpacked bits, which computes the same
     # product and is the library yardstick of both rows.
     for k in (1, 2, 16, 128, 256, 512):
-        codec = codec_for_width(k, "vandermonde")
-        m = codec.field.m
-        t = codec_tensors(codec.generator_bits(), m, dev)
-        G_bits, G_words = t["G_bits"], t["G_words"]
+        m, G_bits = generator_tensor(k, "vandermonde", dev)
+        G_words = generator_words(k, "vandermonde", dev)[1]
         Pm, nm = G_bits.shape
         nw = G_words.shape[0]
         cores = (
@@ -436,7 +444,7 @@ def phase_kernels(torch, table: Table, card: str) -> None:
                     table.add(name, ms, plain_ms, b_ms, b_by, lib_ms)
             del planes, data, want
             torch.cuda.empty_cache()
-        del G_bits, G_words, t
+        del G_bits, G_words
         torch.cuda.empty_cache()
 
     # The dense kernel on random 0/1 generators (not RS ones) at ragged Pm,
@@ -469,9 +477,7 @@ def phase_kernels(torch, table: Table, card: str) -> None:
     for k, construction in ((1, "vandermonde"), (2, "vandermonde"), (16, "vandermonde"),
                             (128, "vandermonde"), (128, "leopard"), (256, "vandermonde"),
                             (512, "vandermonde")):
-        codec = codec_for_width(k, construction)
-        m = codec.field.m
-        G_bits = codec_tensors(codec.generator_bits(), m, dev)["G_bits"]
+        m, G_bits = generator_tensor(k, construction, dev)
         Pm, nm = G_bits.shape
         top = rand_bytes(k, 2 * k, 512)
         bottom, hashes = rs_xor.extend_leaf_digests(top, G_bits, m)
@@ -3491,8 +3497,10 @@ def phase_app(torch, card: str) -> dict:
     an injected launch fault on every launch raises DeviceFault out of
     process_proposal (in the commitments; then in the extend, after the
     degradation ladder walked to its floor); a k=512 block under
-    square_size_upper_bound=512.  Returns the launches per Prepare and per
-    Process."""
+    square_size_upper_bound=512, whose hash main holds to the CPU
+    extend_shares of its square (a CpuChild beside the giant, mesh and
+    ceiling phases).  Returns the launches per Prepare and per Process, and that
+    block's shares and hash."""
     from celestia_app_tpu_torch.app import BlockData
     from celestia_app_tpu_torch.chaos import degrade
     from celestia_app_tpu_torch.da import extend_shares
@@ -3676,22 +3684,79 @@ def phase_app(torch, card: str) -> dict:
         raise AssertionError(f"k={APP_BIG_K} Prepare kept {len(big.txs)} of {len(big_txs)} "
                              f"txs in a k={big.square_size} square")
     big_sq = builder.construct(list(big.txs), APP_BIG_K)
-    big_root = extend_shares(big_sq.share_bytes(), device="cpu").data_root()
     accepted, big_process_ms, big_process_launches, big_process_split = app_call(
         torch, (lambda a=fresh_app(big_genesis, square_size_upper_bound=APP_BIG_K):
                 a.process_proposal(big)))
-    if big_root != big.hash or accepted is not True:
-        raise AssertionError(f"k={APP_BIG_K}: card {big.hash.hex()}, CPU extend_shares "
-                             f"{big_root.hex()}, non-proposer verdict {accepted}")
+    if accepted is not True:
+        raise AssertionError(f"k={APP_BIG_K}: non-proposer verdict {accepted}")
     log(f"[{card}] app k={APP_BIG_K} block (square_size_upper_bound={APP_BIG_K}): "
         f"{len(big_txs)} txs ({made_s:.3f} s to make), {big_sq.accounting.used_shares} shares "
-        f"used; hash == CPU extend_shares; Prepare {big_ms:.3f} ms ({describe_split(big_ms, big_split)}), "
+        f"used (hash held to CPU extend_shares by a child after phase_drills); Prepare "
+        f"{big_ms:.3f} ms ({describe_split(big_ms, big_split)}), "
         f"launches {big_launches}; non-proposer Process accepted, {big_process_ms:.3f} ms "
         f"({describe_split(big_process_ms, big_process_split)}), launches {big_process_launches}")
     for label, n in (("Prepare", big_launches), ("Process", big_process_launches)):
         check_launches(f"{label} k={APP_BIG_K}", n,
                        {"sha256_leaf": None, "sha256": None, "rs_dense": None})
-    return {"prepare": prepares[1][2], "process": processes[1][2]}
+    return {"prepare": prepares[1][2], "process": processes[1][2],
+            "big_block": (big_sq.share_bytes(), big.hash)}
+
+
+_CPU_ROOT_OF = r"""
+import sys
+import numpy as np
+import torch
+from celestia_app_tpu_torch.da import extend_shares
+
+torch.set_num_threads(int(sys.argv[1]))
+shares = np.load(sys.argv[2])
+print(extend_shares([s.tobytes() for s in shares], device="cpu").data_root().hex())
+"""
+
+
+class CpuChild:
+    """A child process computing a reference on the CPU's plain kernels:
+    `script` run as `python -c` in the repo's directory with its torch on
+    `threads` threads (the script's first argument) and `args` after.
+    main starts the children after the last host-bound timed phase
+    (phase_drills), so they share the host only with the device-bound
+    giant, mesh and ceiling phases.  `output()` waits for the child and returns its
+    standard output, failing unless it exited 0; `close()` ends it if it
+    still runs and removes `tmp`."""
+
+    def __init__(self, label: str, script: str, *args, threads: int, tmp: str | None = None):
+        self.label, self.tmp, self.waited_s = label, tmp, 0.0
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", script, str(threads), *map(str, args)],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def output(self, timeout: float = 900) -> str:
+        t0 = time.perf_counter()
+        stdout, stderr = self.proc.communicate(timeout=timeout)
+        self.waited_s = time.perf_counter() - t0
+        if self.proc.returncode != 0:
+            raise AssertionError(f"{self.label}: the CPU child exited {self.proc.returncode}:\n"
+                                 f"{stderr[-3000:]}")
+        return stdout
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+        if self.tmp:
+            shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def cpu_root_child(shares: list, label: str, threads: int) -> CpuChild:
+    """The child printing extend_shares(shares, device="cpu")'s data root
+    (_CPU_ROOT_OF; ~3.5 min at k=512 beside the giant phases)."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="celestia-cpu-root-")
+    path = os.path.join(tmp, "shares.npy")
+    np.save(path, np.frombuffer(b"".join(shares), dtype=np.uint8).reshape(len(shares), -1))
+    return CpuChild(label, _CPU_ROOT_OF, path, threads=threads, tmp=tmp)
 
 
 # phase_chain: the app hash after the golden chain's first block (APP_GOLDEN's
@@ -5090,19 +5155,27 @@ def phase_giant(torch, card: str) -> dict:
     twin's roots too; 64 parity shares == the host FFT encode; launches
     per lowering as giant_launches counts them; BlockPipeline under panel
     auto (4 squares, depth 2, batch asked 4): roots == one-shot compute,
-    journal rows of batch 1 and 16 panels.  k=2048: fused, epi, panel auto
-    and the panel FFT leg (column-blocked), one root, 64 shares == the host
-    FFT (XOR, ~31 s at this size, only at k=1024: the script's time limit).  Beside them: the generator's host build, wall and
-    device time, peak memory per lowering, the column phase dense against
-    column-blocked FFT, the panel column partial's layout moves and XOR
-    against its rs_dense launch, and rs_dense == its plain version on
-    column slices of the giant shapes.  Returns the records."""
+    journal rows of batch 1 and 16 panels.  k=2048: fused, epi and panel
+    auto with its roots-only twin, one root, 64 shares == the host FFT, one
+    timed call per lowering where k=1024 takes three (the script's time
+    limit: XOR, ~31 s at this size, panel 48 and the panel FFT leg run
+    only at k=1024).  Beside them: the generator's host build
+    and its bit expansion on the card, wall and device time, peak memory
+    per lowering, the column phase dense against column-blocked FFT, the
+    panel column partial (xor_encode_into, == encode_axis on a zero
+    accumulator) against its rs_dense launch, and rs_dense == its plain
+    version on column slices of the giant shapes.  Returns the records."""
     from celestia_app_tpu_torch.da import ExtendedDataSquare
     from celestia_app_tpu_torch.device import resolve_device
     from celestia_app_tpu_torch.gf.rs import codec_for_width
     from celestia_app_tpu_torch.kernels import _build, panel, rs_dense
     from celestia_app_tpu_torch.kernels.fft import col_block_encode_fn
-    from celestia_app_tpu_torch.kernels.rs import _codec_tensors, encode_axis, encode_fn
+    from celestia_app_tpu_torch.kernels.rs import (
+        encode_axis,
+        encode_fn,
+        generator_tensor,
+        xor_encode_into,
+    )
     from celestia_app_tpu_torch.parallel import stream_blocks
     from celestia_app_tpu_torch.trace import journal
 
@@ -5113,18 +5186,20 @@ def phase_giant(torch, card: str) -> dict:
         t0 = time.perf_counter()
         codec = codec_for_width(k, "vandermonde")
         gen_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        g_bits = codec.generator_bits()
+        g_bits = generator_tensor(k, "vandermonde", dev)[1]
+        torch.cuda.synchronize()
         bits_s = time.perf_counter() - t0
         log(f"giant k={k}: host generator (FFT encode of the identity) {gen_s:.3f} s, "
-            f"bit expansion {bits_s:.3f} s ({g_bits.nbytes / 1e9:.3f} GB)")
+            f"bit expansion on the card {bits_s:.3f} s ({g_bits.numel() / 1e9:.3f} GB)")
+        del g_bits
         records[k] = {"generator_s": gen_s, "bits_s": bits_s}
         ods = random_square(k, seed=k + 7)
         rows = panel._AUTO_PANEL_ROWS
         n_panels = {"panel auto": k // rows, "panel 48": -(-k // 48),
                     "panel auto fft": k // rows}
-        lowerings = list(GIANT_LOWERINGS) if k == GIANT_KS[0] else \
-            ["fused", "epi", "panel auto", "panel auto fft"]
+        lowerings = list(GIANT_LOWERINGS) if k == GIANT_KS[0] else ["fused", "epi", "panel auto"]
         ref = None
         for name in lowerings:
             env = {**GIANT_BASE, **GIANT_LOWERINGS[name]}
@@ -5137,7 +5212,8 @@ def phase_giant(torch, card: str) -> dict:
                 return e
 
             with environment(env):
-                eds, rec = giant_leg(torch, card, f"giant k={k} {name}", run, want)
+                eds, rec = giant_leg(torch, card, f"giant k={k} {name}", run, want,
+                                     reps=3 if k == GIANT_KS[0] else 1)
                 if name.startswith("panel"):
                     row = journal.rows("compute")[-1]
                     if row["mode"] != "panel" or row["panels"] != n_panels[name]:
@@ -5173,7 +5249,7 @@ def phase_giant(torch, card: str) -> dict:
             del eds
         records[k]["data_root"] = ref.data_root().hex()
         log(f"[{card}] giant k={k}: data root {ref.data_root().hex()} and EDS equal on "
-            f"{lowerings} (+ the roots-only twins of the panel lowerings)")
+            f"{lowerings} (+ the roots-only twins of their panel lowerings)")
 
         # The column phase, dense against the column-blocked FFT of the
         # panel path's FFT leg, on the fused EDS's top half.
@@ -5202,21 +5278,24 @@ def phase_giant(torch, card: str) -> dict:
         planes = planes.reshape(rows, bps, -1).contiguous()
         part = encode_axis(ext, g, m, contract_axis=0)
         acc = torch.zeros_like(part)
+        xor_encode_into(acc, ext, g, m)
+        if not torch.equal(acc, part):
+            raise AssertionError(f"giant k={k}: xor_encode_into != encode_axis on a zero "
+                                 "accumulator")
+        del part
         kernel_ms = cuda_ms(torch, lambda: rs_dense.mod2_matmul_planes(g, planes, m), reps=3)
-        part_ms = cuda_ms(torch, lambda: encode_axis(ext, g, m, contract_axis=0), reps=3)
-        xor_ms = cuda_ms(torch, lambda: acc.bitwise_xor_(part), reps=3)
+        step_ms = cuda_ms(torch, lambda: xor_encode_into(acc, ext, g, m), reps=3)
         n = len(bounds)
-        records[k]["partial"] = {"kernel_ms": kernel_ms, "partial_ms": part_ms, "xor_ms": xor_ms,
-                                 "panels": n}
+        records[k]["partial"] = {"kernel_ms": kernel_ms, "step_ms": step_ms, "panels": n}
         log(f"[{card}] giant k={k}: one {rows}-row panel's column partial: rs_dense "
-            f"{kernel_ms:.3f} ms, encode_axis (rs_dense + layout moves) {part_ms:.3f} ms, XOR "
-            f"into the accumulator {xor_ms:.3f} ms; per square ({n} panels) the moves + XOR "
-            f"{n * (part_ms - kernel_ms + xor_ms):.3f} ms; partial product {part.nbytes / 1e9:.3f} "
-            f"GB")
+            f"{kernel_ms:.3f} ms, xor_encode_into (rs_dense + the planes XORed into the "
+            f"accumulator's byte layout; == encode_axis on a zero accumulator) {step_ms:.3f} ms; "
+            f"per square ({n} panels) the XOR {n * (step_ms - kernel_ms):.3f} ms; partial "
+            f"product {acc.nbytes / 1e9:.3f} GB")
         # rs_dense == its plain version on column slices of the two giant
         # shapes (the plain int32 product of the whole is too large).
         cols = 4096
-        G = _codec_tensors(k, "vandermonde", dev)[1]["G_bits"]
+        G = generator_tensor(k, "vandermonde", dev)[1]
         row_planes = torch.from_numpy(
             ods[:16].transpose(1, 0, 2).reshape(k, 16, 512 // bps, bps))
         row_planes = row_planes.to(dev).movedim(3, 1).reshape(k, bps, -1)[..., :cols]
@@ -5229,7 +5308,7 @@ def phase_giant(torch, card: str) -> dict:
                 raise AssertionError(f"giant k={k}: rs_dense {label} != plain (max err {e})")
             log(f"giant k={k}: rs_dense == plain on the {label} shape G {tuple(gm.shape)}, "
                 f"x {tuple(x.shape)} (first {cols} columns)")
-        del part, acc, planes, ext, top, g, G, row_planes
+        del acc, planes, ext, top, g, G, row_planes
 
         if k == GIANT_KS[0]:
             with environment({**GIANT_BASE, "CELESTIA_PIPE_PANEL": "auto"}):
@@ -5565,7 +5644,7 @@ def phase_mesh(torch, card: str, giant: dict) -> dict:
     return records
 
 
-DRILL_SOAK_BLOCKS = 20
+DRILL_SOAK_BLOCKS = 12
 DRILL_SOAK_K = 128
 DRILL_SHARDS = 4
 DRILL_LOADGEN_CLOSED = ["--heights", "4", "--k", "128", "--samples", "4000", "--threads", "8",
@@ -5585,9 +5664,9 @@ import torch
 from celestia_app_tpu_torch.da.eds import ExtendedDataSquare
 from celestia_app_tpu_torch.scripts.common import deterministic_blocks
 
-torch.set_num_threads(int(sys.argv[3]))
+torch.set_num_threads(int(sys.argv[1]))
 roots = {str(tag): ExtendedDataSquare.compute(ods, device="cpu").data_root().hex()
-         for tag, ods in deterministic_blocks(int(sys.argv[1]), int(sys.argv[2]))}
+         for tag, ods in deterministic_blocks(int(sys.argv[2]), int(sys.argv[3]))}
 print(json.dumps(roots))
 """
 
@@ -5624,18 +5703,7 @@ def leg_line(summary: dict) -> str:
             f"p99 {summary['proof_p99_ms']} ms")
 
 
-def soak_cpu_roots(threads: int = 6) -> subprocess.Popen:
-    """Start the child that computes the clean data roots of chaos_soak's
-    soak blocks on the CPU's plain kernels (_CPU_ROOTS): ~7 s a k=128 block
-    there, so main starts it before the device-bound giant and mesh phases,
-    and phase_drills reads it at its end."""
-    return subprocess.Popen(
-        [sys.executable, "-c", _CPU_ROOTS, str(DRILL_SOAK_BLOCKS), str(DRILL_SOAK_K),
-         str(threads)], cwd=os.path.dirname(os.path.abspath(__file__)),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-
-
-def phase_drills(torch, card: str, cpu: subprocess.Popen | None = None) -> dict:
+def phase_drills(torch, card: str) -> dict:
     """The operator's drivers (celestia_app_tpu_torch/scripts/) on the card,
     each through its `main` as an operator runs it with `--device cuda`:
       1. chaos_soak: a device soak of DRILL_SOAK_BLOCKS blocks at
@@ -5643,10 +5711,10 @@ def phase_drills(torch, card: str, cpu: subprocess.Popen | None = None) -> dict:
          script's k=8 cap, the two sharded drills over DRILL_SHARDS logical
          shards of cuda:0 (--logical-shards); every drill ok, the sharded
          ones on DRILL_SHARDS shards, the epi seat's breaker drill through
-         rs_dense_leaf; every chaos-on soak root == that block's root from a
-         clean ExtendedDataSquare.compute(ods, device="cpu") on the plain
-         kernels (soak_cpu_roots: a child process, started by main before
-         the giant phase, else here);
+         rs_dense_leaf; the chaos-on soak roots are returned, and main
+         holds each to that block's root from a clean
+         ExtendedDataSquare.compute(ods, device="cpu") on the plain kernels
+         (_CPU_ROOTS, a CpuChild);
       2. das_loadgen: a closed-loop leg, a swarm leg and one --serve child
          sampled over --url, every verified proof verifying; the records go
          to a temporary directory; proofs/s, p50 and p99 per leg; the card's
@@ -5657,7 +5725,8 @@ def phase_drills(torch, card: str, cpu: subprocess.Popen | None = None) -> dict:
       4. devnet_smoke: DRILL_DEVNET validator processes on the card, one
          killed, a Commit light-client-verified; each child's launches from
          its log.
-    Per driver the wall time and the launches of its run in this process."""
+    Per script the wall time and the launches of its run in this process;
+    returned with the legs' figures and the soak roots."""
     import tempfile
 
     from celestia_app_tpu_torch.kernels import _build
@@ -5672,7 +5741,6 @@ def phase_drills(torch, card: str, cpu: subprocess.Popen | None = None) -> dict:
     tmp = tempfile.mkdtemp(prefix="celestia-drills-")
     root_dir = os.path.dirname(os.path.abspath(__file__))
     per_driver = {}
-    cpu = cpu if cpu is not None else soak_cpu_roots()
     serve = None
     try:
         # 1. The chaos soak.
@@ -5817,27 +5885,296 @@ def phase_drills(torch, card: str, cpu: subprocess.Popen | None = None) -> dict:
             + "; ".join(ln for ln in out.splitlines()
                         if ln.startswith(("survived", "commit@", "post-kill")))
             + f"; per child (height, launches so far): {children}")
-
-        # 5. The soak's roots against the plain kernels on the CPU.
-        t0 = time.perf_counter()
-        stdout, stderr = cpu.communicate(timeout=600)
-        if cpu.returncode != 0:
-            raise AssertionError(f"the CPU roots exited {cpu.returncode}:\n{stderr[-3000:]}")
-        want = json.loads(stdout.strip().splitlines()[-1])
-        if soak["soak_roots"] != want:
-            raise AssertionError("a chaos-on soak root differs from the CPU plain kernels'")
-        log(f"[{card}] the {DRILL_SOAK_BLOCKS} chaos-on soak roots at k={DRILL_SOAK_K} == "
-            f"clean ExtendedDataSquare.compute(device='cpu') on the plain kernels (waited "
-            f"{time.perf_counter() - t0:.1f} s for them at the end)")
     finally:
-        for proc in (cpu, serve):
-            if proc is not None and proc.poll() is None:
-                proc.kill()
-                proc.wait(timeout=30)
+        if serve is not None and serve.poll() is None:
+            serve.kill()
+            serve.wait(timeout=30)
         shutil.rmtree(tmp, ignore_errors=True)
     return {"per_driver": per_driver, "legs": {k: {key: v.get(key) for key in (
         "samples", "wall_s", "proofs_per_s", "proof_p50_ms", "proof_p99_ms")}
-        for k, v in legs.items()}}
+        for k, v in legs.items()}, "soak_roots": soak["soak_roots"]}
+
+
+# --- the leopard-parity tool: its self-test and one block's verdict ---
+
+# The square size of the tool's block evidence (GF(2^8), leopard), and
+# where the tool's card runs put their squares.
+LEOPARD_K = 128
+LEOPARD_DEVICE = "cuda"
+
+_LEOPARD_CPU = r"""
+import json, sys
+import numpy as np
+import torch
+from celestia_app_tpu_torch.scripts import verify_leopard_parity as tool
+
+torch.set_num_threads(int(sys.argv[1]))
+path, k = sys.argv[2], int(sys.argv[3])
+rng = np.random.default_rng(k)
+ods = rng.integers(0, 256, (k * k, 512), dtype=np.uint8)
+ods[:, :29] = 0
+ods[:, 28] = np.sort(rng.integers(0, 200, k * k)).astype(np.uint8)
+ev = tool.block_evidence(ods.reshape(k, k, 512), "leopard", device="cpu")
+with open(path, "w") as f:
+    json.dump(ev, f)
+sys.exit(tool.main([path, "--device", "cpu"]))
+"""
+
+
+def phase_leopard(torch, card: str, cpu: CpuChild, path: str) -> dict:
+    """celestia_app_tpu_torch/scripts/verify_leopard_parity through its
+    `main` with --device cuda: `--selftest` (every leg ok; its block leg
+    extends on the card), then the k=LEOPARD_K leopard block evidence the
+    CPU child wrote: the card's JSON line (the verdict and both
+    constructions' results) == the CPU's, and the verdict is that the
+    leopard construction matches.  Returns the launches of each run."""
+    from celestia_app_tpu_torch.kernels import _build
+    from celestia_app_tpu_torch.scripts import verify_leopard_parity as tool
+
+    logs = os.path.dirname(path)
+    rc, out, seconds, selftest_launches = run_driver(
+        torch, _build, tool.main, ["--selftest", "--device", LEOPARD_DEVICE],
+        os.path.join(logs, "leopard-selftest.log"))
+    report = last_json(out)
+    if rc != 0 or set(report["selftest"].values()) != {"ok"}:
+        raise AssertionError(f"verify_leopard_parity --selftest exited {rc}: {report}")
+    check_launches("verify_leopard_parity --selftest", selftest_launches,
+                   {"sha256": None, "sha256_leaf": None, "rs_dense": None})
+    log(f"[{card}] verify_leopard_parity --selftest --device {LEOPARD_DEVICE}: "
+        f"{report['selftest']} in {seconds:.1f} s; launches {selftest_launches}")
+    want = last_json(cpu.output(timeout=600))
+    rc, out, seconds, block_launches = run_driver(
+        torch, _build, tool.main, [path, "--device", LEOPARD_DEVICE],
+        os.path.join(logs, "leopard-block.log"))
+    got = last_json(out)
+    if rc != 0 or got != want:
+        raise AssertionError(f"the card's leopard verdict {got} != the CPU's {want}")
+    if not got["results"]["leopard"]["match"] or got["results"]["vandermonde"]["match"]:
+        raise AssertionError(f"k={LEOPARD_K} leopard evidence: {got}")
+    # Two extends of the block (one per construction), each through rs_dense.
+    check_launches("verify_leopard_parity block", block_launches,
+                   {"sha256": None, "sha256_leaf": None, "rs_dense": 4})
+    log(f"[{card}] verify_leopard_parity on k={LEOPARD_K} leopard block evidence (written by "
+        f"--device cpu): the card's line == the CPU's ({got['verdict']!r}; vandermonde "
+        f"first row / column mismatch {got['results']['vandermonde']['first_row_mismatch']} / "
+        f"{got['results']['vandermonde']['first_col_mismatch']}) in {seconds:.1f} s, waited "
+        f"{cpu.waited_s:.1f} s for the CPU; launches {block_launches}")
+    return {"selftest": selftest_launches, "block": block_launches}
+
+
+# --- the codec ceiling: k=4096 on one card --------------------------------
+
+# The square size (MAX_CODEC_SQUARE_SIZE) and the logical shards of its
+# sharded-panel lowering (phase_mesh's).
+CEILING_K = 4096
+CEILING_SHARDS = MESH_SHARDS
+
+
+def ceiling_square(torch, k: int, seed: int):
+    """A (k, k, 512) ODS in pinned host memory, the construction of
+    __graft_entry__._example_ods (namespaces rising in row-major order in
+    the last namespace byte, the other namespace bytes 0, random bodies),
+    drawn on the card from a seeded torch.Generator in 256-row chunks and
+    copied down: 8.6 GB at k=4096 without a host array in between."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    ns = torch.randint(0, 200, (k * k,), generator=gen, device=dev, dtype=torch.int32)
+    ns = torch.sort(ns).values.to(torch.uint8).view(k, k)
+    ods = torch.empty((k, k, 512), dtype=torch.uint8, pin_memory=True)
+    for r0 in range(0, k, 256):
+        r1 = min(r0 + 256, k)
+        chunk = torch.randint(0, 256, (r1 - r0, k, 512), generator=gen, device=dev,
+                              dtype=torch.uint8)
+        chunk[..., :29] = 0
+        chunk[..., 28] = ns[r0:r1]
+        ods[r0:r1].copy_(chunk)
+    torch.cuda.synchronize()
+    return ods
+
+
+def host_line_root(codec, ods: np.ndarray, axis: str, index: int) -> bytes:
+    """The NMT root of ODS row or column `index` (< k) of the extended
+    square, computed on the host alone: the line's parity from the host
+    additive FFT (fft_parity), its 2k leaves under the quadrant namespace
+    rule (the data shares' own namespaces, the parity namespace on the
+    parity half) pushed into the port's nmt/tree over hashlib."""
+    from celestia_app_tpu_torch.constants import NAMESPACE_SIZE, PARITY_NAMESPACE_BYTES
+    from celestia_app_tpu_torch.nmt.tree import NamespacedMerkleTree
+
+    data = np.ascontiguousarray(ods[index] if axis == "row" else ods[:, index])
+    tree = NamespacedMerkleTree()
+    for share in data:
+        tree.push(share[:NAMESPACE_SIZE].tobytes() + share.tobytes())
+    for share in fft_parity(codec, data):
+        tree.push(PARITY_NAMESPACE_BYTES + share.tobytes())
+    return tree.root()
+
+
+def ceiling_leg(torch, card: str, label: str, fn, first: bool = True) -> tuple:
+    """One k=CEILING_K lowering: a first call (when `first`), then one timed
+    call with the allocator's peak and the launch counters reset just
+    before it.  Returns (its result, record)."""
+    from celestia_app_tpu_torch.kernels import _build
+
+    first_s = None
+    if first:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    rec = {"wall_ms": wall, "first_s": first_s, "resident_gb": resident / 1e9,
+           "peak_above_gb": (peak - resident) / 1e9, "launches": dict(_build.LAUNCHES)}
+    log(f"[{card}] {label}: wall {wall:.3f} ms" + (
+        f", first call {first_s:.3f} s" if first else " (its only call)") +
+        f"; peak allocated {peak / 1e9:.3f} GB, {(peak - resident) / 1e9:.3f} GB above the "
+        f"{resident / 1e9:.3f} GB resident before it")
+    return out, rec
+
+
+def check_not_degraded(label: str) -> None:
+    """Fail unless the degradation ladder sits at the top: the rung asked
+    for is the rung that ran."""
+    from celestia_app_tpu_torch.chaos import degrade
+
+    gauge = counter_value("celestia_degraded")
+    if degrade.degraded_state() is not None or gauge != 0.0:
+        raise AssertionError(f"{label}: the ladder stepped down "
+                             f"({degrade.degraded_state()}, celestia_degraded {gauge})")
+
+
+def phase_ceiling(torch, card: str) -> dict:
+    """The codec ceiling, k=CEILING_K = MAX_CODEC_SQUARE_SIZE (GF(2^16),
+    vandermonde, $CELESTIA_PIPE_PANEL=auto: 64 panels of 64 rows), on one
+    card freed first of every cached pipeline and generator
+    (trace/device_ledger.release_device_caches; the resident bytes are printed before
+    each lowering):
+      1. kernels/panel.panel_pipeline(k, roots_only=True);
+      2. kernels/panel_sharded.sharded_panel_pipeline(k, roots_only=True)
+         over CEILING_SHARDS logical shards of cuda:0;
+      3. one ExtendedDataSquare.compute(ods): the 34.4 GB EDS through
+         guarded_dispatch (61 GB at its peak on an 80 GB card), its
+         journal row mode "panel" with 64 panels.
+    The ODS is ceiling_square's pinned host tensor; each runner uploads it
+    panel by panel.  Checks: the lowerings' 2 x 2k row and column roots and
+    data roots byte-equal; two ODS rows and two ODS columns recomputed on
+    the host (host_line_root) == the card's roots at their indices; 64
+    Q1/Q2/Q3 parity shares of the materialized EDS == the host FFT
+    (check_parity_fft); launches per square == giant_launches (per shard ==
+    mesh_launches); the ladder never stepped down (celestia_degraded 0).
+    Printed: the host codec build and the card's bit expansion, each
+    lowering's wall (a first call and one timed call; compute once) and
+    peak allocated above the resident.  Returns the records."""
+    from celestia_app_tpu_torch.da.eds import ExtendedDataSquare
+    from celestia_app_tpu_torch.gf.rs import codec_for_width
+    from celestia_app_tpu_torch.kernels import fused, panel
+    from celestia_app_tpu_torch.kernels.panel_sharded import sharded_panel_pipeline
+    from celestia_app_tpu_torch.kernels.rs import generator_tensor
+    from celestia_app_tpu_torch.parallel.mesh import Mesh
+    from celestia_app_tpu_torch.trace import journal
+    from celestia_app_tpu_torch.trace.device_ledger import release_device_caches
+
+    k = CEILING_K
+    dev = torch.device("cuda", 0)
+    records = {}
+    release_device_caches()
+    check_not_degraded("ceiling")
+    log(f"[{card}] ceiling k={k}: {torch.cuda.memory_allocated() / 1e9:.3f} GB resident after "
+        f"releasing the cached pipelines and generators")
+    with environment({**GIANT_BASE, "CELESTIA_PIPE_PANEL": "auto"}):
+        rows, n_panels = panel.panel_rows(k), panel.panel_count(k)
+        mode = fused.pipeline_mode_for_k(k, dev)
+        auto = panel._AUTO_PANEL_ROWS
+        if (rows, n_panels, mode) != (auto, k // auto, "panel"):
+            raise AssertionError(f"ceiling k={k}: rows {rows}, panels {n_panels}, mode {mode}")
+        t0 = time.perf_counter()
+        codec = codec_for_width(k, "vandermonde")
+        gen_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g_bits = generator_tensor(k, "vandermonde", dev)[1]
+        torch.cuda.synchronize()
+        bits_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ods = ceiling_square(torch, k, seed=k + 7)
+        ods_s = time.perf_counter() - t0
+        host = ods.numpy()
+        records.update(generator_s=gen_s, bits_s=bits_s, ods_s=ods_s)
+        log(f"[{card}] ceiling k={k}: host generator (FFT encode of the identity) {gen_s:.3f} s, "
+            f"bit expansion on the card {bits_s:.3f} s ({g_bits.numel() / 1e9:.3f} GB); the ODS "
+            f"({ods.numel() / 1e9:.3f} GB, pinned host memory) drawn on the card and copied "
+            f"down in {ods_s:.3f} s")
+        del g_bits
+        want = giant_launches(k, "panel auto", n_panels)
+
+        run = panel.panel_pipeline(k, roots_only=True)
+        roots, rec = ceiling_leg(torch, card, f"ceiling k={k} panel roots only",
+                                 lambda: run(ods))
+        check_launches(f"ceiling k={k} panel", rec["launches"], want)
+        check_not_degraded(f"ceiling k={k} panel")
+        records["panel"] = rec
+        del run
+
+        mesh = Mesh([dev] * CEILING_SHARDS, "extend")
+        srun = sharded_panel_pipeline(k, roots_only=True, mesh=mesh)
+        sroots, rec = ceiling_leg(torch, card, f"ceiling k={k} sharded panel roots only, "
+                                  f"{CEILING_SHARDS} logical shards", lambda: srun(ods))
+        rec["launches_per_shard"] = check_shard_launches(
+            f"ceiling k={k} sharded panel", mesh, mesh_launches(k, CEILING_SHARDS, rows))
+        check_not_degraded(f"ceiling k={k} sharded panel")
+        records["sharded_panel"] = rec
+        del srun
+        if not all(torch.equal(a, b) for a, b in zip(roots, sroots)):
+            raise AssertionError(f"ceiling k={k}: the sharded panel roots != the panel roots")
+        del sroots
+        log(f"[{card}] ceiling k={k}: the panel and {CEILING_SHARDS}-shard sharded panel "
+            f"lowerings agree on all {2 * 2 * k} row and column roots and the data root "
+            f"{roots[2].cpu().numpy().tobytes().hex()}; launches per square "
+            f"{records['panel']['launches']} (== {want}), per shard "
+            f"{records['sharded_panel']['launches_per_shard']}")
+
+        rng = np.random.default_rng(k)
+        t0 = time.perf_counter()
+        lines = [("row", int(i)) for i in rng.choice(k, 2, replace=False)] + \
+            [("col", int(j)) for j in rng.choice(k, 2, replace=False)]
+        for axis, i in lines:
+            got = (roots[0] if axis == "row" else roots[1])[i].cpu().numpy().tobytes()
+            if host_line_root(codec, host, axis, i) != got:
+                raise AssertionError(f"ceiling k={k}: {axis} {i}'s root != the host's")
+        log(f"[{card}] ceiling k={k}: the roots of ODS {lines} recomputed on the host (host FFT "
+            f"parity, hashlib NMT) == the card's ({time.perf_counter() - t0:.3f} s)")
+
+        release_device_caches()
+        eds, rec = ceiling_leg(torch, card, f"ceiling k={k} ExtendedDataSquare.compute "
+                               f"(materializing)", lambda: ExtendedDataSquare.compute(ods),
+                               first=False)
+        row = journal.rows("compute")[-1]
+        if row["mode"] != "panel" or row["panels"] != n_panels:
+            raise AssertionError(f"ceiling k={k} compute: journal row {row}")
+        check_launches(f"ceiling k={k} compute", rec["launches"], want)
+        check_not_degraded(f"ceiling k={k} compute")
+        if not all(torch.equal(a, b) for a, b in zip(
+                roots, (eds._row_roots, eds._col_roots, eds._data_root))):
+            raise AssertionError(f"ceiling k={k}: compute's roots != the panel roots")
+        checked = check_parity_fft(eds._eds, host, codec, rng)
+        records["compute"] = rec
+        log(f"[{card}] ceiling k={k} compute: journal mode panel, {n_panels} panels; roots == "
+            f"the roots-only lowerings'; {checked} Q1/Q2/Q3 parity shares == the host FFT")
+        del eds
+        records["data_root"] = roots[2].cpu().numpy().tobytes().hex()
+        del roots, ods, host
+    release_device_caches()
+    log(f"ceiling records: {json.dumps(records)}")
+    return records
 
 
 def main() -> int:
@@ -5908,6 +6245,7 @@ def main() -> int:
     phase_done("commitments")
     app_counts = phase_app(torch, card)
     phase_done("app")
+    big_shares, big_hash = app_counts.pop("big_block")
     chain_counts = phase_chain(torch, card)
     phase_done("chain")
     node_counts = phase_node(torch, card)
@@ -5918,18 +6256,49 @@ def main() -> int:
     phase_done("querier")
     bridge_counts = phase_bridge(torch, card)
     phase_done("bridge")
-    cpu_roots = soak_cpu_roots()
+    drills = phase_drills(torch, card)
+    phase_done("drills")
+    import tempfile
+
+    # The CPU references run from here on, beside the device-bound giant,
+    # mesh and ceiling phases (the k=512 root takes ~3.5 min on six
+    # threads), and are read at the end: no host-bound timed phase shares
+    # the host with them.
+    leopard_dir = tempfile.mkdtemp(prefix="celestia-leopard-")
+    leopard_path = os.path.join(leopard_dir, "block.json")
+    children = []
     try:
+        big_root = cpu_root_child(big_shares, f"app k={APP_BIG_K} Prepare", threads=6)
+        children.append(big_root)
+        soak_roots = CpuChild("soak roots", _CPU_ROOTS, DRILL_SOAK_BLOCKS, DRILL_SOAK_K,
+                              threads=2)
+        children.append(soak_roots)
+        leopard_cpu = CpuChild("leopard verdict", _LEOPARD_CPU, leopard_path, LEOPARD_K,
+                               threads=1, tmp=leopard_dir)
+        children.append(leopard_cpu)
         giant = phase_giant(torch, card)
         phase_done("giant")
         phase_mesh(torch, card, giant)
         phase_done("mesh")
-        drills = phase_drills(torch, card, cpu_roots)
-        phase_done("drills")
+        leopard_counts = phase_leopard(torch, card, leopard_cpu, leopard_path)
+        phase_done("leopard")
+        phase_ceiling(torch, card)
+        phase_done("ceiling")
+        got = big_root.output().strip().splitlines()[-1]
+        if got != big_hash.hex():
+            raise AssertionError(f"app k={APP_BIG_K} Prepare's hash {big_hash.hex()} != CPU "
+                                 f"extend_shares' data root {got}")
+        if json.loads(soak_roots.output().strip().splitlines()[-1]) != drills["soak_roots"]:
+            raise AssertionError("a chaos-on soak root differs from the CPU plain kernels'")
+        log(f"[{card}] app k={APP_BIG_K} Prepare's hash == CPU extend_shares of its square "
+            f"(waited {big_root.waited_s:.1f} s for the child); the {DRILL_SOAK_BLOCKS} "
+            f"chaos-on soak roots at k={DRILL_SOAK_K} == clean ExtendedDataSquare.compute("
+            f"device='cpu') on the plain kernels (waited {soak_roots.waited_s:.1f} s)")
+        phase_done("cpu references")
     finally:
-        if cpu_roots.poll() is None:
-            cpu_roots.kill()
-            cpu_roots.wait(timeout=30)
+        for child in children:
+            child.close()
+        shutil.rmtree(leopard_dir, ignore_errors=True)
     log(f"launches: per commitment batch {commit_counts}; per k={APP_K} Prepare "
         f"{app_counts['prepare']} and non-proposer Process {app_counts['process']}; per k={APP_K} "
         f"chain height's Prepare, Process, Finalize and Commit {chain_counts}; per k={APP_K} "
@@ -5938,7 +6307,8 @@ def main() -> int:
         f"query {query_counts}; in the bridge worker over its run {bridge_counts}; per DAS "
         f"payload and heal {serve_counts}; per gated GET, state-sync catch-up block and, per "
         f"child, devnet height {ops_counts}; per throughput block, gated GetShareProof and "
-        f"relayer proof {planes_counts}; per driver run {drills['per_driver']}")
+        f"relayer proof {planes_counts}; per driver run {drills['per_driver']}; per "
+        f"verify_leopard_parity run {leopard_counts}")
 
     # Each kernel's launches on the k=512 path that runs it: the column
     # phase's kernel names the path, the hashing kernels run on every path.

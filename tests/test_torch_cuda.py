@@ -15,11 +15,10 @@ import numpy as np
 import pytest
 import torch
 
-from celestia_app_tpu_torch.convert import codec_tensors
 from celestia_app_tpu_torch.gf.rs import RSCodec
 from celestia_app_tpu_torch.kernels import _build, rs_dense, rs_xor
 from celestia_app_tpu_torch.kernels import sha256 as sha
-from celestia_app_tpu_torch.kernels.rs import _encode_with
+from celestia_app_tpu_torch.kernels.rs import _encode_with, generator_tensor, generator_words
 
 pytestmark = pytest.mark.cuda
 
@@ -62,8 +61,10 @@ def test_rs_kernels_equal_plain(cuda, k, construction):
     rng = np.random.default_rng(k)
     codec = RSCodec(k, construction)
     m = codec.field.m
-    on_card = codec_tensors(codec.generator_bits(), m, cuda)
-    on_cpu = codec_tensors(codec.generator_bits(), m, "cpu")
+    on_card = {"G_bits": generator_tensor(k, construction, cuda)[1],
+               "G_words": generator_words(k, construction, cuda)[1]}
+    on_cpu = {"G_bits": generator_tensor(k, construction, "cpu")[1],
+              "G_words": generator_words(k, construction, "cpu")[1]}
     for axis, shape in ((1, (k, k, 512)), (0, (k, 2 * k, 512)), (1, (3, k, 40))):
         data = _bytes(rng, *shape)
         want = _encode_with(rs_dense.mod2_matmul_planes_plain, data, on_cpu["G_bits"], m, axis)
@@ -115,7 +116,7 @@ def test_epilogue_kernel_equals_plain(cuda, k, construction):
     rng = np.random.default_rng(k)
     codec = RSCodec(k, construction)
     m = codec.field.m
-    G_bits = codec_tensors(codec.generator_bits(), m, cuda)["G_bits"]
+    G_bits = generator_tensor(k, construction, cuda)[1]
     top = _bytes(rng, k, 2 * k, 512).to(cuda)
     before = _build.LAUNCHES["rs_dense_leaf"]
     bottom, hashes = rs_xor.extend_leaf_digests(top, G_bits, m)
@@ -504,11 +505,10 @@ def test_panel_generator_slices_at_odd_rows_m8(cuda, k):
     generator columns 8 bytes into a 16-byte row: the raw view goes through
     rs_dense.tma_rows' copy, the cached slice as it is; both == plain."""
     from celestia_app_tpu_torch.kernels import panel
-    from celestia_app_tpu_torch.kernels.rs import _codec_tensors, encode_axis
+    from celestia_app_tpu_torch.kernels.rs import encode_axis, generator_tensor
 
-    m, tensors = _codec_tensors(k, "leopard", cuda)
+    m, G = generator_tensor(k, "leopard", cuda)
     assert m == 8
-    G = tensors["G_bits"]
     bounds = panel.panel_bounds(k, 7)
     slices = panel._col_generator_slices(k, "leopard", bounds, cuda)
     rng = np.random.default_rng(k)
@@ -632,7 +632,7 @@ def test_launch_on_the_last_card(cuda):
     rng = np.random.default_rng(n)
     codec = RSCodec(64, "vandermonde")
     m = codec.field.m
-    G = codec_tensors(codec.generator_bits(), m, last)["G_bits"]
+    G = generator_tensor(64, "vandermonde", last)[1]
     data = _bytes(rng, 64, 64, 512)
     with torch.cuda.device(0):
         got = _encode_with(rs_dense.mod2_matmul_planes, data.to(last), G, m, 1)

@@ -22,12 +22,11 @@ from celestia_app_tpu.kernels import fused as jax_fused
 from celestia_app_tpu.kernels.rs import encode_fn as jax_encode_fn
 from celestia_app_tpu.kernels.rs_xor import bottom_leaf_fn as jax_bottom_leaf_fn
 from celestia_app_tpu_torch.constants import SHARE_SIZE
-from celestia_app_tpu_torch.convert import codec_tensors
 from celestia_app_tpu_torch.da import eds as port_eds
 from celestia_app_tpu_torch.da import extend_shares
 from celestia_app_tpu_torch.gf.rs import RSCodec
 from celestia_app_tpu_torch.kernels import fused, rs_xor
-from celestia_app_tpu_torch.kernels.rs import encode_fn
+from celestia_app_tpu_torch.kernels.rs import encode_fn, generator_tensor, generator_words
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -62,7 +61,7 @@ def test_extend_leaf_digests_equals_jax_bottom_leaf_fn(k, construction, monkeypa
 
     codec = RSCodec(k, construction)
     m = codec.field.m
-    G_bits = codec_tensors(codec.generator_bits(), m, "cpu")["G_bits"]
+    G_bits = generator_tensor(k, construction, "cpu")[1]
     bottom, hashes = rs_xor.extend_leaf_digests(torch.from_numpy(top), G_bits, m)
     assert np.array_equal(bottom.numpy(), want_bottom)
     assert np.array_equal(hashes.numpy(), want_hashes)
@@ -142,8 +141,7 @@ def test_bottom_leaf_fn_needs_the_seated_encode():
 
 
 def test_epilogue_input_checks():
-    codec = RSCodec(2, "vandermonde")
-    G_bits = codec_tensors(codec.generator_bits(), 8, "cpu")["G_bits"]
+    G_bits = generator_tensor(2, "vandermonde", "cpu")[1]
     with pytest.raises(ValueError):
         rs_xor.extend_leaf_digests(torch.zeros((2, 4, 100), dtype=torch.uint8), G_bits, 8)
     with pytest.raises(ValueError):
@@ -154,7 +152,7 @@ def test_epilogue_input_checks():
                                    G_bits, 8)
     with pytest.raises(ValueError):  # the packed XOR words are not the epilogue's operand
         rs_xor.extend_leaf_digests(torch.zeros((2, 4, SHARE_SIZE), dtype=torch.uint8),
-                                   codec_tensors(codec.generator_bits(), 8, "cpu")["G_words"], 8)
+                                   generator_words(2, "vandermonde", "cpu")[1], 8)
 
 
 def _gf2_parity_shares(G: np.ndarray, top: np.ndarray, m: int) -> np.ndarray:

@@ -7,7 +7,8 @@ the in-process node and its clients, the round machine, the vote WAL, the
 chaos spec and the gossip-driven serving node, the protocol adversary, the
 DAS provider, the healing loop and the height timeline, the gRPC plane, the
 REST gateway, the daemon, the tools, the harnesses, the Blobstream
-relayer and the operator's drivers under scripts/ included) imported in a
+relayer, the operator's drivers and the leopard-parity tool under scripts/
+included) imported in a
 fresh interpreter leaves no `jax`, `celestia_app_tpu.*` or `cryptography`
 module in sys.modules and no environment variable or sys.path entry
 changed, and no source
@@ -78,7 +79,8 @@ def test_importing_every_port_module_loads_no_jax():
                  "testutil.malicious", "testutil.ibc", "crypto.keccak",
                  "modules.blobstream.evm", "modules.blobstream.relayer",
                  "scripts", "scripts.common", "scripts.chaos_soak", "scripts.das_loadgen",
-                 "scripts.block_anatomy", "scripts.devnet_smoke", "scripts.trace_lint"):
+                 "scripts.block_anatomy", "scripts.devnet_smoke", "scripts.trace_lint",
+                 "scripts.verify_leopard_parity"):
         assert f"celestia_app_tpu_torch.{name}" in result["imported"]
     assert result["forbidden"] == []
     # Importing a module writes no environment variable and no sys.path

@@ -341,7 +341,7 @@ def test_a_faulting_panel_raises_out_of_compute_and_the_stream(monkeypatch):
     def boom(*_a, **_k):
         raise RuntimeError("injected panel fault")
 
-    monkeypatch.setattr(panel, "encode_axis", boom)
+    monkeypatch.setattr(panel, "xor_encode_into", boom)
     ods = _random_ods(4, seed=13)
     try:
         eds = ExtendedDataSquare.compute(ods, device="cpu")

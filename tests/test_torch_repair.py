@@ -25,7 +25,7 @@ from celestia_app_tpu.da import repair as jax_repair
 from celestia_app_tpu.gf.rs import RSCodec as JaxRSCodec
 from celestia_app_tpu.kernels.rs import decode_axis_fn as jax_decode_axis_fn
 from celestia_app_tpu_torch.constants import NAMESPACE_SIZE, SHARE_SIZE
-from celestia_app_tpu_torch.convert import bits_tensor
+from celestia_app_tpu_torch.convert import expand_bits_tensor
 from celestia_app_tpu_torch.da import (
     DataAvailabilityHeader,
     IrrecoverableSquare,
@@ -266,8 +266,7 @@ def test_decode_axis_fn_matches_jax(k, construction):
     known = lines[:, known_pos]
     want = np.asarray(jax_decode_axis_fn(k, construction)(known, R_bits))
     port_codec = codec_for_width(k, construction)
-    port_R = bits_tensor(port_codec.field.expand_bit_matrix(port_codec.recover_matrix(known_pos)),
-                         "cpu")
+    port_R = expand_bits_tensor(port_codec.field, port_codec.recover_matrix(known_pos), "cpu")
     got = decode_axis_fn(k, construction)(torch.from_numpy(known), port_R)
     assert np.array_equal(got.numpy(), want)
     assert np.array_equal(want, lines)

@@ -21,9 +21,15 @@ from celestia_app_tpu.gf.rs import RSCodec as JaxRSCodec
 from celestia_app_tpu.kernels import rs as jax_rs
 from celestia_app_tpu.kernels import rs_pallas as jax_rs_pallas
 from celestia_app_tpu.kernels import rs_xor as jax_rs_xor
-from celestia_app_tpu_torch.convert import codec_tensors, pack_generator_words
+from celestia_app_tpu_torch.convert import expand_bits_tensor, pack_generator_words
 from celestia_app_tpu_torch.gf.rs import RSCodec
-from celestia_app_tpu_torch.kernels.rs import encode_axis, encode_axis_xor, encode_fn
+from celestia_app_tpu_torch.kernels.rs import (
+    encode_axis,
+    encode_axis_xor,
+    encode_fn,
+    generator_tensor,
+    generator_words,
+)
 from celestia_app_tpu_torch.kernels.rs_xor import pack_data_words
 
 
@@ -41,8 +47,8 @@ def _release_jax_programs():
 
 
 def _tensors(k: int, construction: str):
-    codec = RSCodec(k, construction)
-    return codec.field.m, codec_tensors(codec.generator_bits(), codec.field.m, "cpu")
+    m, G_bits = generator_tensor(k, construction, "cpu")
+    return m, {"G_bits": G_bits, "G_words": generator_words(k, construction, "cpu")[1]}
 
 
 def _port_both(data: np.ndarray, k: int, construction: str, axis: int):
@@ -139,7 +145,11 @@ def test_encode_fn_selects_xor_by_env(monkeypatch):
 
 
 def test_codec_tensors_reject_non_bit_matrices():
+    """The device bit expansion takes only a 2-D matrix of field elements."""
+    field = RSCodec(2, "vandermonde").field
     with pytest.raises(ValueError):
-        codec_tensors(np.full((8, 8), 2, dtype=np.uint8), 8, "cpu")
+        expand_bits_tensor(field, np.full((8, 8), 256, dtype=np.int64), "cpu")
     with pytest.raises(ValueError):
-        codec_tensors(np.zeros((8, 12), dtype=np.uint8), 8, "cpu")
+        expand_bits_tensor(field, np.full((8, 8), -1, dtype=np.int64), "cpu")
+    with pytest.raises(ValueError):
+        expand_bits_tensor(field, np.zeros((8, 12, 2), dtype=np.uint8), "cpu")

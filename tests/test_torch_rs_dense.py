@@ -2,7 +2,7 @@
 
 The CUDA kernel (csrc/rs_dense.cu) reads the generator and the byte planes
 and writes the parity through TMA, which needs 16-byte row strides.
-`codec_tensors` pads the generator's rows once, and `tma_rows` pads any
+`kernels.rs.generator_tensor` pads the generator's rows once, and `tma_rows` pads any
 other tensor's rows; these tests hold both to the plain version's bytes and
 to the JAX package's dense core, at the ragged shapes where padding is
 needed (k=1 has an 8-byte generator row).  The kernel itself is compared
@@ -20,10 +20,9 @@ import pytest
 import torch
 
 from celestia_app_tpu.kernels import rs as jax_rs
-from celestia_app_tpu_torch.convert import codec_tensors
 from celestia_app_tpu_torch.gf.rs import RSCodec
 from celestia_app_tpu_torch.kernels import rs_dense
-from celestia_app_tpu_torch.kernels.rs import encode_axis
+from celestia_app_tpu_torch.kernels.rs import encode_axis, generator_tensor
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -43,7 +42,7 @@ def _release_jax_programs():
 def test_codec_generator_rows_are_tma_aligned(k):
     codec = RSCodec(k, "leopard")
     m = codec.field.m
-    G = codec_tensors(codec.generator_bits(), m, "cpu")["G_bits"]
+    G = generator_tensor(k, "leopard", "cpu")[1]
     assert G.shape == (k * m, k * m)
     assert G.stride(1) == 1 and G.stride(0) % 16 == 0
     assert rs_dense.tma_rows(G) is G  # no per-call copy
@@ -59,7 +58,7 @@ def test_padded_generator_gives_plain_bytes(k):
     and as the host codec."""
     codec = RSCodec(k, "vandermonde")
     m = codec.field.m
-    G = codec_tensors(codec.generator_bits(), m, "cpu")["G_bits"]
+    G = generator_tensor(k, "vandermonde", "cpu")[1]
     compact = G.contiguous()
     rng = np.random.default_rng(k)
     ods = torch.from_numpy(rng.integers(0, 256, (k, k, 512), dtype=np.uint8))
