@@ -51,7 +51,14 @@ LIBRARIES: dict[str, tuple[str, dict[str, list]]] = {
         "rs_dense_mod2": [_P, _L, _P, _L, _P, _L, _I, _I, _L, _P],
         "rs_dense_info": [_P],
     }),
-    "rs_xor": ("rs_xor.cu", {"rs_xor_mod2": [_P, _P, _P, _I, _I, _L, _P]}),
+    "rs_xor": ("rs_xor.cu", {
+        "rs_xor_mod2": [_P, _L, _P, _L, _P, _L, _I, _I, _L, _P],
+        "rs_xor_info": [_P],
+    }),
+    "rs_xor_probe": ("rs_xor_probe.cu", {
+        "rs_xor_probe": [_I, _I, _I, _P, _P],
+        "rs_xor_probe_info": [_P],
+    }),
     "rs_dense_leaf": ("rs_dense_leaf.cu", {
         "rs_dense_leaf": [_P, _L, _P, _L, _P, _P, _I, _I, _I, _I, _P],
         "rs_dense_leaf_info": [_I, _P],

@@ -5,9 +5,11 @@
     parity[i, c] = parity of acc[i, c]'s 32 bits
 
 On a CUDA tensor `mod2_matmul_planes_xor` launches csrc/rs_xor.cu (the
-counterpart of celestia_app_tpu/kernels/rs_xor.py::mod2_matmul_planes_xor);
-on a CPU tensor it runs the plain version below.  Words are int32 tensors
-holding the uint32 bit patterns.
+counterpart of celestia_app_tpu/kernels/rs_xor.py::mod2_matmul_planes_xor),
+which runs the AND and the parity on the binary tensor cores (the low bit
+of wgmma .b1.and.popc) over `kernel_operands`; on a CPU tensor it runs the
+plain version below.  Words are int32 tensors holding the uint32 bit
+patterns.
 
 `extend_leaf_digests` is the fused leaf-hash epilogue of the `fused_epi`
 pipeline: the column-phase extend of the top half and the NMT leaf digests
@@ -30,6 +32,7 @@ from celestia_app_tpu_torch.kernels.rs_dense import (
     _pack_bits,
     check_aligned,
     mod2_matmul_planes_plain,
+    padded_width,
     tma_rows,
 )
 from celestia_app_tpu_torch.kernels.sha256 import sha256_leaves_plain
@@ -41,7 +44,9 @@ def pack_data_words(x: torch.Tensor) -> torch.Tensor:
     Contraction row j*m + 8*b + t (share j, byte b, bit t) lands on bit
     8*q + t of word w where the flat byte row j*bps + b = 4*w + q: four
     consecutive byte rows little-endian per word, zero-padded to a multiple
-    of 4 — the bit order convert.pack_generator_words uses.
+    of 4 — the bit order convert.pack_generator_words uses.  The rows' stride
+    is cols rounded up to 4 words (a TMA row stride); the columns past cols
+    are not written.
     """
     n, bps, cols = x.shape
     rows = n * bps
@@ -51,8 +56,12 @@ def pack_data_words(x: torch.Tensor) -> torch.Tensor:
         flat = torch.cat(
             [flat, torch.zeros((pad, cols), dtype=torch.uint8, device=x.device)]
         )
-    by = flat.reshape(-1, 4, cols).permute(0, 2, 1).contiguous()  # (NW, cols, 4)
-    return by.view(torch.int32).reshape(-1, cols)
+    nw = (rows + pad) // 4
+    ld = -(-cols // 4) * 4
+    buf = torch.empty((nw, ld), dtype=torch.int32, device=x.device)
+    buf.view(torch.uint8).view(nw, ld, 4)[:, :cols].copy_(
+        flat.reshape(nw, 4, cols).permute(0, 2, 1))
+    return buf[:, :cols]
 
 
 def _check(G_words: torch.Tensor, x: torch.Tensor, m: int) -> None:
@@ -99,12 +108,74 @@ def mod2_matmul_planes_xor(
     _check(G_words, x, m)
     _, bps, cols = x.shape
     nw, Pm = G_words.shape
-    B = pack_data_words(x)
-    G_words = G_words.contiguous()
-    out = torch.empty((Pm // m, bps, cols), dtype=torch.uint8, device=x.device)
+    # (Pm/8, cols) output rows at a padded stride, as rs_dense's.
+    out = torch.empty((Pm // 8, padded_width(cols)), dtype=torch.uint8,
+                      device=x.device)[:, :cols]
     if cols:
-        _build.launch("rs_xor", "rs_xor", "rs_xor_mod2", G_words, B, out, nw, Pm, cols)
-    return out
+        G, B = kernel_operands(G_words, x)
+        check_aligned(G, B, out)
+        _build.launch("rs_xor", "rs_xor", "rs_xor_mod2", G, G.stride(0), B, 4 * B.stride(0),
+                      out, out.stride(0), Pm, nw, cols)
+    return out.view(Pm // m, bps, cols)
+
+
+def kernel_operands(G_words: torch.Tensor, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's two inputs: the generator transposed to (Pm, 4*NW)
+    bytes, row r's contraction bits LSB first (the bytes of row r of
+    np.packbits(G_bits, axis=1, bitorder="little"), zero-padded to whole
+    words), K-major as a wgmma B operand must be, at a TMA row stride; and
+    the data words of pack_data_words."""
+    nw, Pm = G_words.shape
+    rows = torch.empty((Pm, nw), dtype=torch.int32, device=G_words.device)
+    rows.copy_(G_words.t())
+    return tma_rows(rows.view(torch.uint8)), pack_data_words(x)
+
+
+def pipe_rates(device=None) -> dict:
+    """The pipes the XOR kernel's inner product could run on, measured on
+    the card by csrc/rs_xor_probe.cu on every SM at once: "mma_b1" for the
+    binary tensor cores through mma.sync m16n8k256 .b1 and.popc, "lop3" for
+    the int32 pipes (acc ^= g & b), "wgmma_b1" for the binary tensor cores
+    through wgmma m64n256k256 .b1 and.popc (the kernel's), in bit-products
+    per second, with each launch's mean time in ms under "<pipe>_ms".  No
+    path calls it: chip_smoke.py prints it, and "wgmma_b1" is the bound
+    basis of the kernel there and in kernels/sweep_rs_dense.py."""
+    import ctypes
+
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError(f"the pipe probe runs on a CUDA device, not {dev}")
+    lib = _build.library("rs_xor_probe")
+    v = (ctypes.c_int * 7)()
+    lib.rs_xor_probe_info(v)
+    threads, mma_chains, mma_bits, lop_chains, lop_bits, wg_mmas, wg_bits = list(v)
+    blocks = 4 * torch.cuda.get_device_properties(dev).multi_processor_count
+    out = torch.empty(blocks * threads, dtype=torch.int32, device=dev)
+    rates = {}
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev)
+        for mode, pipe, iters, per_trip in (
+                (0, "mma_b1", 1 << 14, threads // 32 * mma_chains * mma_bits),
+                (1, "lop3", 1 << 16, threads * lop_chains * lop_bits),
+                (2, "wgmma_b1", 1 << 12, threads // 128 * wg_mmas * wg_bits)):
+            def call(mode=mode, iters=iters):
+                rc = lib.rs_xor_probe(mode, blocks, iters, out.data_ptr(), stream.cuda_stream)
+                if rc:
+                    raise RuntimeError(f"rs_xor_probe mode {mode} failed to launch: "
+                                       f"CUDA error {rc}")
+
+            call()  # warm
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            for _ in range(3):
+                call()
+            end.record(stream)
+            end.synchronize()
+            ms = start.elapsed_time(end) / 3
+            rates[pipe] = blocks * iters * per_trip / (ms * 1e-3)
+            rates[f"{pipe}_ms"] = ms
+    return rates
 
 
 # --------------------------------------------------------------------------

@@ -1,22 +1,27 @@
-"""Time build variants of the two tensor-core RS kernels on the card.
+"""Time build variants of the RS kernels on the card.
 
     python -m celestia_app_tpu_torch.kernels.sweep_rs_dense
 
-Each variant is a kernel's source (csrc/rs_dense.cu or csrc/rs_dense_leaf.cu,
-with the shared main loop csrc/rs_dense.cuh) with one compile-time constant
-or line replaced.  Dense kernel: ring slots, generator bands walked
+Each variant is a kernel's source (csrc/rs_dense.cu, csrc/rs_dense_leaf.cu
+or csrc/rs_xor.cu, with the shared csrc/rs_dense.cuh) with one compile-time
+constant or line replaced.  Dense kernel: ring slots, generator bands walked
 together, and "no_mma" (the wgmma issue removed: the loads and the bit
 expansion alone, which shows whether the tensor work or the data path
 holds the kernel back).  Leaf-hash epilogue kernel: where the hash runs
 (on producer warps 1-3, built in, or on the consumers after each item),
 the GF(2^16) input read in share order or as a byte-plane copy, ring
 slots, the hash removed ("leaf_no_hash": the product and the stores
-alone) and the wgmma removed.  All variants build in parallel into the
-package's build directory.  The dense kernel runs at two main-path shapes
+alone) and the wgmma removed.  XOR kernel (csrc/rs_xor.cu, on
+rs_dense.cuh's ring): ring slots, raster groups, and "xor_no_mma" (the
+binary wgmma removed: the loads and the A fragments alone).  All
+variants build in parallel into the package's build directory.  The dense kernel runs at two main-path shapes
 (the k=512 row phase, GF(2^16), cols 131,072; the k=128 column phase,
 GF(2^8), cols 131,072), the epilogue kernel at the fused_epi column phase
-of k=512 and k=128.  Each line gives the mean of CUDA-event timed launches
-and the share of the int8 operations bound; the variants that compute the
+of k=512 and k=128, the XOR kernel at the k=512 row and column phases and
+the k=128 column phase.  Each line gives the mean of CUDA-event timed
+launches and the share of the int8 operations bound (XOR: of the
+bit-products at the binary wgmma rate that kernels/rs_xor.pipe_rates
+measures in the same run); the variants that compute the
 whole function are checked byte for byte against the built-in kernel.
 Needs an NVIDIA card and nvcc.
 """
@@ -31,7 +36,7 @@ import numpy as np
 import torch
 
 from celestia_app_tpu_torch.kernels import _build, rs_dense, rs_xor
-from celestia_app_tpu_torch.kernels.rs import generator_tensor
+from celestia_app_tpu_torch.kernels.rs import generator_tensor, generator_words
 
 INT8_OPS_PER_S = 1.979e15  # H100 SXM dense int8 peak (data sheet, 700 W)
 
@@ -41,6 +46,7 @@ MMA = "wgmma_s8(d, a[kk], db + 2 * kk, (kb > 0 || kk > 0) ? 1 : 0);"
 MODE = "constexpr int kHashMode = 1;"
 ORDER = "constexpr bool kShareOrder = true;"
 HASH = "for (int blk = 0; blk < kSha; ++blk) leaf_block(st, row, blk);"
+XOR_MMA = "wgmma_b1(d, a[kk], db + 2 * kk, (kb > 0 || kk > 0) ? 1 : 0);"
 
 # kernel library -> {variant: [(text, replacement)]}; the variants whose
 # name ends in "no_mma" or "no_hash" skip a part of the function.
@@ -62,6 +68,13 @@ VARIANTS = {
         "leaf_stages5": [(STAGES, "constexpr int STAGES = 5;")],
         "leaf_no_hash": [(HASH, "")],
         "leaf_no_mma": [(MMA, "")],
+    },
+    "rs_xor": {
+        "xor": [],
+        "xor_stages3": [(STAGES, "constexpr int STAGES = 3;")],
+        "xor_group4": [(GROUP, "constexpr int GROUP_M = 4;")],
+        "xor_group16": [(GROUP, "constexpr int GROUP_M = 16;")],
+        "xor_no_mma": [(XOR_MMA, ";")],
     },
 }
 
@@ -198,6 +211,39 @@ def sweep_leaf(libs, card: str, dev, rng) -> None:
         torch.cuda.empty_cache()
 
 
+def sweep_xor(libs, card: str, dev, rng) -> None:
+    rate = rs_xor.pipe_rates(dev)["wgmma_b1"]
+    print(f"[{card}] binary wgmma .b1 and.popc: {rate:.4e} bit-products/s", flush=True)
+    for k, axis, shape in ((512, 1, (512, 512, 512)), (512, 0, (512, 1024, 512)),
+                           (128, 0, (128, 256, 512))):
+        m, G = generator_words(k, "vandermonde", dev)
+        nw, Pm = G.shape
+        data = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+        x = data.movedim(axis, 0)
+        n, batch, S = x.shape
+        bps = m // 8
+        planes = x.reshape(n, batch, S // bps, bps).movedim(3, 1).reshape(n, bps, -1)
+        planes = planes.contiguous()
+        cols = planes.shape[2]
+        want = rs_xor.mod2_matmul_planes_xor(G, planes, m).reshape(Pm // 8, cols)
+        Gk, B = rs_xor.kernel_operands(G, planes)
+        bound_ms = 32.0 * Pm * nw * cols / rate * 1e3
+        for name in VARIANTS["rs_xor"]:
+            out = torch.empty((Pm // 8, cols), dtype=torch.uint8, device=dev)
+            call = _launcher(name, libs[name].rs_xor_mod2, Gk, Gk.stride(0), B, 4 * B.stride(0),
+                             out, out.stride(0), Pm, nw, cols)
+            call()
+            torch.cuda.synchronize()
+            if not _partial(name) and not torch.equal(out, want):
+                raise AssertionError(f"variant {name} != the built-in kernel at k={k}")
+            ms = _time(call, 5 if k == 512 else 20)
+            print(f"[{card}] rs_xor k={k} m={m} axis={axis} cols={cols} {name}: {ms:.3f} ms, "
+                  f"{100 * bound_ms / ms:.1f}% of the {bound_ms:.3f} ms binary wgmma bound"
+                  f"{'' if _partial(name) else ', equal'}", flush=True)
+        del data, planes, Gk, B, want
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("sweep_rs_dense: no CUDA device is available", file=sys.stderr)
@@ -210,6 +256,7 @@ def main() -> int:
     rng = np.random.default_rng(3)
     sweep_dense(libs, card, dev, rng)
     sweep_leaf(libs, card, dev, rng)
+    sweep_xor(libs, card, dev, rng)
     return 0
 
 

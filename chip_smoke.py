@@ -6,16 +6,18 @@
 Phases, in order; any failure raises and the script exits non-zero:
   1. build   every CUDA kernel from celestia_app_tpu_torch/csrc (one nvcc per
              source, started together), print the build seconds, the ptxas
-             register and spill lines, the two tensor-core kernels'
+             register and spill lines, the three tensor-core kernels'
              registers per warpgroup role, tiling and shared memory, and the
              card;
   2. kernels each kernel against its plain PyTorch version on the card at the
              shapes the main path gives it (the RS kernels and the epilogue
-             at k = 1, 2, 16, 128, 256, 512, the dense one and the epilogue
-             also on random 0/1 generators at ragged shapes); every byte
-             must agree; times beside the bound and torch._int_mm, the
-             library call for the RS product, and for the epilogue the
-             unfused pair that computes the same function;
+             at k = 1, 2, 16, 128, 256, 512, all three also on random 0/1
+             generators at ragged shapes, the XOR one on a k=2048 slice);
+             every byte must agree; the pipes the XOR kernel could use
+             (csrc/rs_xor_probe.cu: binary mma.sync and wgmma, LOP3); times
+             beside the bound and torch._int_mm, the library call for the
+             RS product, in its fastest of three operand layouts, and for
+             the epilogue the unfused pair that computes the same function;
   3. goldens extend_shares on the card reproduces the reference DAH hashes
              (MinDAH, k=2, k=128), under the fused and the fused_epi
              ($CELESTIA_PIPE_FUSED=epi) lowerings;
@@ -288,6 +290,20 @@ def rs_dense_leaf_roles(_build) -> str:
             f"hash on {where}; " + "; ".join(parts))
 
 
+def rs_xor_roles(_build) -> str:
+    """The XOR kernel's tiling (csrc/rs_xor.cu)."""
+    import ctypes
+
+    v = (ctypes.c_int * 8)()
+    _build.library("rs_xor").rs_xor_info(v)
+    rows, cols, kb, stages, prod, cons, smem, threads = list(v)
+    return (f"rs_xor: {threads} threads, tiles of {rows} generator rows x {cols} data columns, "
+            f"{8 * kb}-bit stages, {stages}-slot ring, {smem} B dynamic shared memory; "
+            f"consumer warpgroups (2: data words into A fragments, wgmma m64n256k256 .b1 "
+            f"and.popc) {cons} registers, producer warpgroup (TMA on one thread) {prod} "
+            f"registers (setmaxnreg)")
+
+
 def max_abs_err(a, b) -> int:
     if a.shape != b.shape:
         raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
@@ -324,6 +340,75 @@ class Table:
         row["bound_by"] = bound_by
         if library_ms is not None:
             row["library_ms"] = (row["library_ms"] or 0.0) + library_ms
+
+
+def xor_probe(card: str) -> dict:
+    """kernels/rs_xor.pipe_rates: the binary tensor cores' mma.sync
+    m16n8k256 .b1 and.popc against LOP3 (acc ^= g & b) on the int32 pipes,
+    both in bit-products per second on every SM, and the LOP3 rate against
+    INT32_OPS_PER_S; beside them the binary wgmma's rate.  The rule takes
+    the binary pipe where its mma.sync gives at least twice the LOP3 rate;
+    the XOR kernel issues it through wgmma, whose measured rate is the
+    bound basis of the kernel's row."""
+    from celestia_app_tpu_torch.kernels import rs_xor
+
+    rates = rs_xor.pipe_rates()
+    lop3_ops = rates["lop3"] / 32
+    ratio = rates["mma_b1"] / rates["lop3"]
+    log(f"[{card}] rs_xor_probe: mma.sync m16n8k256 .b1 and.popc {rates['mma_b1']:.4e} "
+        f"bit-products/s ({rates['mma_b1_ms']:.3f} ms a launch); LOP3 {rates['lop3']:.4e} "
+        f"bit-products/s ({rates['lop3_ms']:.3f} ms), {lop3_ops:.4e} LOP3/s = "
+        f"{100 * lop3_ops / INT32_OPS_PER_S:.1f}% of INT32_OPS_PER_S ({INT32_OPS_PER_S:.4e}); "
+        f"binary / LOP3 = {ratio:.2f}: the rule (binary at >= 2x) picks "
+        f"{'the binary pipe' if ratio >= 2 else 'LOP3'}; wgmma m64n256k256 .b1 and.popc "
+        f"{rates['wgmma_b1']:.4e} bit-products/s ({rates['wgmma_b1_ms']:.3f} ms), the "
+        f"instruction rs_xor.cu issues")
+    return rates
+
+
+def int_mm_layouts(torch, card: str, G_bits, planes, m: int, k: int, axis: int,
+                   check=None) -> tuple[str, float]:
+    """torch._int_mm on the unpacked bits, which computes the RS product
+    (the parities are its low bits), in three operand layouts: "NN" both
+    row-major; "TN" the bits column-major (cuBLASLt's int8 tensor-core
+    layout); "transposed" bits^T @ G^T, both operands K-major, giving the
+    product transposed.  The layout copies are made outside the timed
+    calls and each operand and result is freed before the next (at the
+    k=512 column phase: 2.1 GB of bits, 2.1 GB of their copy, 8.6 GB of
+    int32).  Where `check` (the kernel's planes) is given, each result's
+    parities must equal it.  Returns the fastest (layout, ms)."""
+    from celestia_app_tpu_torch.kernels import rs_dense
+
+    P, bps = G_bits.shape[0] // m, m // 8
+    G = G_bits.contiguous()
+
+    def checked(name, fn):
+        if check is not None:
+            bits = fn()
+            if name == "transposed":
+                bits = bits.t()
+            got = rs_dense._pack_bits((bits & 1).to(torch.uint8), P, bps)
+            if not torch.equal(got, check):
+                raise AssertionError(f"torch._int_mm {name} at k={k} axis={axis}: parities "
+                                     "!= the kernel's")
+            del bits, got
+        ms = cuda_ms(torch, fn, reps=3)
+        torch.cuda.empty_cache()
+        return ms
+
+    bits = rs_dense._unpack_bits(planes)
+    times = {"NN": checked("NN", lambda: torch._int_mm(G, bits))}
+    bits_t = bits.t().contiguous()
+    del bits
+    times["TN"] = checked("TN", lambda: torch._int_mm(G, bits_t.t()))
+    times["transposed"] = checked("transposed", lambda: torch._int_mm(bits_t, G.t()))
+    del bits_t, G
+    torch.cuda.empty_cache()
+    best = min(times, key=times.get)
+    log(f"[{card}] torch._int_mm k={k} m={m} axis={axis}: "
+        + ", ".join(f"{name} {ms:.3f} ms" for name, ms in times.items())
+        + f"; fastest {best}" + ("; parities == the kernel's" if check is not None else ""))
+    return best, times[best]
 
 
 def phase_kernels(torch, table: Table, card: str) -> None:
@@ -386,12 +471,16 @@ def phase_kernels(torch, table: Table, card: str) -> None:
             table.add("sha256_leaf", ms, plain_ms, b_ms, b_by)
         del ns, shares, got, want
 
+    # The two pipes the XOR kernel's inner product could run on.
+    binary_rate = xor_probe(card)["wgmma_b1"]
+
     # RS encodes at the main path's shapes: the row phase contracts axis 1
     # of the ODS (k, k, 512), the column phase axis 0 of the top half
     # (k, 2k, 512).  Both kernels against the plain version at every k of
     # the path's two fields; timed at k = 128 (GF(2^8)) and 512 (GF(2^16)),
     # beside torch._int_mm on the unpacked bits, which computes the same
-    # product and is the library yardstick of both rows.
+    # product and is the library yardstick of both rows (int_mm_layouts:
+    # the fastest of three operand layouts).
     for k in (1, 2, 16, 128, 256, 512):
         m, G_bits = generator_tensor(k, "vandermonde", dev)
         G_words = generator_words(k, "vandermonde", dev)[1]
@@ -424,22 +513,22 @@ def phase_kernels(torch, table: Table, card: str) -> None:
             planes = x.reshape(n_, batch, S // bps, bps).movedim(3, 1).reshape(
                 n_, bps, -1).contiguous()
             cols = planes.shape[2]
-            bits = rs_dense._unpack_bits(planes)
-            G_dense = G_bits.contiguous()
-            lib_ms = cuda_ms(torch, lambda: torch._int_mm(G_dense, bits), reps=3)
-            del bits, G_dense
+            check = rs_dense.mod2_matmul_planes(G_bits, planes, m) if k == 128 else None
+            layout, lib_ms = int_mm_layouts(torch, card, G_bits, planes, m, k, axis, check)
+            del check
             for name, core, plain, G in cores:
                 ms = cuda_ms(torch, lambda: core(G, planes, m), reps=3)
                 plain_ms = cuda_ms(torch, lambda: plain(G, planes, m), reps=1, warm=False)
                 if name == "rs_dense":
                     b_ms, b_by = bound(Pm * nm + nm // 8 * cols + Pm // 8 * cols,
                                        (2.0 * Pm * nm * cols, INT8_OPS_PER_S))
-                else:
+                else:  # bit-products at the binary wgmma's rate the probe measured
                     b_ms, b_by = bound(4 * nw * Pm + 4 * nw * cols + Pm // 8 * cols,
-                                       (float(Pm) * nw * cols, INT32_OPS_PER_S))
+                                       (32.0 * Pm * nw * cols, binary_rate))
                 log(f"[{card}] {name} k={k} m={m} axis={axis} cols={cols}: kernel "
                     f"{ms:.3f} ms ({100 * b_ms / ms:.1f}% of bound), plain {plain_ms:.3f} ms, "
-                    f"torch._int_mm {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), equal")
+                    f"torch._int_mm {lib_ms:.3f} ms ({layout}), bound {b_ms:.3f} ms ({b_by}), "
+                    f"equal")
                 if k == 512:
                     table.add(name, ms, plain_ms, b_ms, b_by, lib_ms)
             del planes, data, want
@@ -462,6 +551,35 @@ def phase_kernels(torch, table: Table, card: str) -> None:
                                      f"Pm={Pm} nm={nm} m={m} cols={cols}")
     log(f"[{card}] rs_dense on random generators (Pm, nm) = (24, 40), (32, 48), (136, 264) "
         f"x cols 1, 120, 257, 1000: equal to plain")
+
+    # The XOR kernel on the same random generators, packed to words, whose
+    # tiles cut through every edge of its 256 x 128 x 1024-bit tiling, and
+    # on a slice of the k=2048 column phase (GF(2^16), NW = 1024 words, Pm =
+    # 32,768).
+    from celestia_app_tpu_torch.convert import pack_generator_words
+
+    for Pm, nm, m in ((24, 40, 8), (32, 48, 16), (136, 264, 8)):
+        G = rng.integers(0, 2, (Pm, nm), dtype=np.uint8)
+        Gw = torch.from_numpy(pack_generator_words(G).view(np.int32)).to(dev)
+        for cols in (1, 120, 257, 1000):
+            x = rand_bytes(nm // m, m // 8, cols)
+            e = max_abs_err(rs_xor.mod2_matmul_planes_xor(Gw, x, m),
+                            rs_xor.mod2_matmul_planes_xor_plain(Gw, x, m))
+            table.err("rs_xor", e)
+            if e:
+                raise AssertionError(f"rs_xor != plain on a random generator "
+                                     f"Pm={Pm} nm={nm} m={m} cols={cols}")
+    m, Gw = generator_words(2048, "vandermonde", dev)
+    top = rand_bytes(2048, 8, 512)
+    e = max_abs_err(_encode_with(rs_xor.mod2_matmul_planes_xor, top, Gw, m, 0),
+                    _encode_with(rs_xor.mod2_matmul_planes_xor_plain, top, Gw, m, 0))
+    table.err("rs_xor", e)
+    if e:
+        raise AssertionError("rs_xor != plain on the k=2048 column-phase slice (2048, 8, 512)")
+    del Gw, top
+    log(f"[{card}] rs_xor on random generators (Pm, nm) = (24, 40), (32, 48), (136, 264) "
+        f"x cols 1, 120, 257, 1000 and on the k=2048 column-phase slice (2048, 8, 512): "
+        f"equal to plain")
 
     # The fused extend + leaf-hash epilogue on the fused_epi column phase's
     # input, the top half (k, 2k, 512): GF(2^8) at k = 1, 2, 16, 128 (and
@@ -6205,6 +6323,7 @@ def main() -> int:
                     log(f"ptxas {lib}: {line.strip()}")
     log(rs_dense_roles(_build))
     log(rs_dense_leaf_roles(_build))
+    log(rs_xor_roles(_build))
 
     table = Table()
     t0 = time.perf_counter()

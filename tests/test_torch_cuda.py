@@ -91,6 +91,34 @@ def test_dense_kernel_random_generator(cuda, Pm, nm, m, cols):
     assert torch.equal(got.cpu(), rs_dense.mod2_matmul_planes_plain(G, x, m))
 
 
+@pytest.mark.parametrize("cols", [1, 120, 257, 1000])
+@pytest.mark.parametrize("Pm,nm,m", [(24, 40, 8), (32, 48, 16), (136, 264, 8)])
+def test_xor_kernel_random_generator(cuda, Pm, nm, m, cols):
+    """The XOR kernel on the same random generators, packed to words: the
+    tiles cut through every edge of its 256 x 128 x 1024-bit tiling, and
+    the wrapper pads the row strides of its operands and output."""
+    from celestia_app_tpu_torch.convert import pack_generator_words
+
+    rng = np.random.default_rng(Pm * cols + nm)
+    G = rng.integers(0, 2, (Pm, nm), dtype=np.uint8)
+    Gw = torch.from_numpy(pack_generator_words(G).view(np.int32))
+    x = _bytes(rng, nm // m, m // 8, cols)
+    before = _build.LAUNCHES["rs_xor"]
+    got = rs_xor.mod2_matmul_planes_xor(Gw.to(cuda), x.to(cuda), m)
+    assert _build.LAUNCHES["rs_xor"] == before + 1
+    assert torch.equal(got.cpu(), rs_xor.mod2_matmul_planes_xor_plain(Gw, x, m))
+    assert torch.equal(got.cpu(), rs_dense.mod2_matmul_planes_plain(
+        torch.from_numpy(G.astype(np.int8)), x, m))
+
+
+def test_pipe_probe_rates(cuda):
+    """csrc/rs_xor_probe.cu runs its three pipes on the card and reports a
+    rate for each (chip_smoke.py prints them beside INT32_OPS_PER_S)."""
+    rates = rs_xor.pipe_rates(cuda)
+    assert all(rates[pipe] > 0 and rates[f"{pipe}_ms"] > 0
+               for pipe in ("mma_b1", "lop3", "wgmma_b1"))
+
+
 @pytest.mark.parametrize("xor", [False, True])
 def test_pipeline_on_card_equals_cpu(cuda, xor, monkeypatch):
     from celestia_app_tpu_torch.da import extend_shares
